@@ -1,0 +1,161 @@
+"""Build and load the CUDA kernels (``csrc/*.cu``) and host C++ libraries.
+
+The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface and bound with ``ctypes``: no
+PyTorch header is included, so a build takes seconds.  Each source is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are linked once.  Libraries are named after a hash of their sources and
+flags, so a stale one is never loaded, and are moved into place atomically,
+so concurrent processes may race to build without harm.
+
+Nothing here runs at import: a machine without ``nvcc`` can import every
+module of the package, and only a launch on a CUDA tensor reaches the build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_PKG)
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
+
+KERNEL_SOURCES = ("match.cu", "parse_walk.cu", "decode_walk.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# C interface of csrc/*.cu: every pointer and the stream is a c_void_p (a
+# bare Python int would be cut to 32 bits).  Each returns cudaGetLastError().
+_KERNEL_ARGTYPES = {
+    # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth, stream
+    "lz77_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lox, entry, exit_map, cnt_map, entries, offsets, tokens, count, exit,
+    # valid_total, sub_block, la, ob, lb, stream
+    "lz77_walk_parse_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+    # tokens, T, buf, wp, out_cap, count, sums, ptr, flags, rounds, stream
+    "lz77_walk_decode": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _I, _P],
+}
+
+_lock = threading.Lock()
+_kernels = None
+
+
+def _tag(paths, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:12]
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built from source at first "
+            "use and need the CUDA toolkit"
+        )
+    return path
+
+
+def _run_all(cmds, logs) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out, log in zip(cmds, procs, outs, logs):
+        with open(log, "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel build failed ({' '.join(cmd)}):\n{out}"
+            )
+
+
+def build_kernels() -> str:
+    """Compile ``csrc/*.cu`` if needed; return the shared library's path."""
+    srcs = [os.path.join(CSRC, s) for s in KERNEL_SOURCES]
+    tag = _tag(srcs, NVCC_FLAGS)
+    lib = os.path.join(BUILD_DIR, f"liblz77_kernels_{tag}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cc = nvcc()
+    stem = os.path.join(BUILD_DIR, f"{tag}_{os.getpid()}")
+    objs = [f"{stem}_{os.path.splitext(s)[0]}.o" for s in KERNEL_SOURCES]
+    _run_all(
+        [[cc, *NVCC_FLAGS, "-c", src, "-o", obj]
+         for src, obj in zip(srcs, objs)],
+        # the logs keep ptxas' register / shared-memory report per kernel
+        [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.log")
+         for s in KERNEL_SOURCES],
+    )
+    tmp = f"{stem}.so"
+    _run_all(
+        [[cc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs]],
+        [os.path.join(BUILD_DIR, "link.log")],
+    )
+    os.replace(tmp, lib)
+    for o in objs:
+        os.unlink(o)
+    return lib
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call; raises on failure)."""
+    global _kernels
+    with _lock:
+        if _kernels is None:
+            lib = ctypes.CDLL(build_kernels())
+            for name, argtypes in _KERNEL_ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _kernels = lib
+        return _kernels
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def build_host_library(src: str, name: str) -> str:
+    """Compile one host C++ source into a shared library; return its path.
+
+    Uses ``g++``; a machine that has the CUDA toolkit but no ``g++`` on the
+    path compiles the same source as host code through ``nvcc -x c++``.
+    """
+    tag = _tag([src], ())
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = os.path.join(BUILD_DIR, f"{name}_{tag}_{os.getpid()}.so")
+    gxx = shutil.which("g++")
+    if gxx:
+        cmd = [gxx, "-O3", "-pthread", "-shared", "-fPIC", "-o", tmp, src]
+    else:
+        cmd = [nvcc(), "-x", "c++", "-O3", "-Xcompiler", "-fPIC,-pthread",
+               "-shared", "-o", tmp, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"host library build failed ({' '.join(cmd)}):\n{res.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib

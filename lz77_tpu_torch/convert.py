@@ -1,0 +1,73 @@
+"""State carried across from the JAX package, as plain Python and numpy.
+
+The codec has no weights.  What the two packages must agree on is the
+format parameters and the per-batch state: the (G, B) batch inputs, the
+match tables, the LOX words and the token fields.  These functions turn
+the JAX package's values — handed over as Python ints and numpy arrays,
+never as jax arrays — into this package's tensors, with its dtypes, on the
+device asked for.  The tests push the same numpy inputs through both
+packages with them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import device as device_lib
+from . import spec
+from .ops import decode_walk, parse_walk
+
+
+def _tensor(a, np_dtype, dev) -> torch.Tensor:
+    # np.array copies: values handed over from jax are read-only buffers
+    return torch.from_numpy(np.array(a, dtype=np_dtype)).to(dev)
+
+
+def params_from_reference(la: int, sb: int) -> spec.Params:
+    """The JAX package's (la, sb) -> this package's validated ``Params``."""
+    return spec.Params(la=int(la), sb=int(sb))
+
+
+def batch_from_numpy(gb, gh, gr, ga, gv, valid_total, entry, device=None):
+    """The batch tuple of ``codec._batch_inputs`` plus the two scalars ->
+    the arguments of ``fused.encode_batch_walk``.
+
+    Returns (blocks, halos, rights, avails, valid_exts, valid_total, entry0):
+    uint8 (G, B) / (G, H) / (G, R), int32 (G,) twice, a Python int, and a
+    (1,) int32 tensor.
+    """
+    dev = device_lib.resolve(device)
+    return (
+        _tensor(gb, np.uint8, dev), _tensor(gh, np.uint8, dev),
+        _tensor(gr, np.uint8, dev), _tensor(ga, np.int32, dev),
+        _tensor(gv, np.int32, dev), int(valid_total),
+        _tensor(np.asarray(entry).reshape(1), np.int32, dev),
+    )
+
+
+def tables_from_numpy(L, O, device=None):
+    """Match tables (any integer dtype, any shape) -> int32 tensors (L, O)."""
+    dev = device_lib.resolve(device)
+    return _tensor(L, np.int32, dev), _tensor(O, np.int32, dev)
+
+
+def lox_from_numpy(L, O, x, tail, la: int, device=None) -> torch.Tensor:
+    """Flat match tables, span bytes and tail bytes -> K2's LOX words."""
+    dev = device_lib.resolve(device)
+    Lt, Ot = tables_from_numpy(np.asarray(L).reshape(-1),
+                               np.asarray(O).reshape(-1), dev)
+    return parse_walk.build_lox(
+        Lt, Ot, _tensor(x, np.uint8, dev).reshape(-1),
+        _tensor(tail, np.uint8, dev), la,
+    )
+
+
+def tokens_from_numpy(off, ln, nxt, device=None) -> torch.Tensor:
+    """Token fields -> K3's (T,) int32 decode words on the device."""
+    dev = device_lib.resolve(device)
+    return torch.from_numpy(
+        decode_walk.pack_token_words(
+            np.asarray(off), np.asarray(ln), np.asarray(nxt)
+        )
+    ).to(dev)

@@ -1,0 +1,197 @@
+"""Exact longest-match finder: contract, plain PyTorch version, CUDA kernel.
+
+Replaces the reference's binary-search-tree match finder (tree.c:118-152)
+with the **true** longest match for every position of a block at once, which
+dominates the BST's path-limited answer and so guarantees a compressed size
+<= the reference's (SURVEY.md §2.4).
+
+Coordinates (the contract of the JAX package's ``ops.match``, kept so the
+two packages are compared like with like): a block of B bytes comes with an
+H-byte *halo* of preceding input bytes (H = d_limit, tail-aligned) and an
+(la-1)-byte *right extension* of following bytes, so distances and lookahead
+see exactly the bytes one serial pass over the whole input would.  ``avail``
+is the number of valid halo bytes (< H only near the start of the stream);
+``valid_ext`` is the number of valid bytes counting from block[0], possibly
+exceeding B.  Per-position results are therefore block-size-invariant.
+
+Kernel note — ``csrc/match.cu::match_kernel`` replaces the TPU kernel
+``lz77_tpu/ops/pallas_bitplane.py::_kernel`` (the bit-sliced distance sweep).
+The TPU form exists because that machine compares 32 positions per word op
+and has no cheap byte addressing; Hopper has byte loads from shared memory
+and independent threads, so the kernel is the byte-domain sweep itself: one
+thread per position, distances ascending, strict ``>`` (smallest distance
+wins ties), early exit once the position's cap is reached.  It is bound by
+operations, not bytes: it reads ~1 B and writes 8 B per input byte, but does
+up to ``d_limit`` first-byte compares per position.  The design keeps the
+tile plus its whole window in shared memory (dynamic, up to ~66 KB at
+sb=65535) so every compare is a shared-memory byte load, and filters each
+distance on two bytes (the first and the one a longer match must also hold)
+before the run loop, which keeps divergent run loops rare.  It covers
+la 2..255 and sb 1..65535 itself; there is no second formulation to give way
+to.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build, spec
+from .. import device as device_lib
+
+
+def match_sweep_plain(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sweep: same inputs, same (L, O).
+
+    One pass per distance over the whole (G, B) batch; run lengths by
+    doubling (log2(la) shifted adds), so a deep ``la`` costs no more passes.
+    Distances no position can reach (``d > max(pos + avail)``) are skipped.
+    """
+    G, B = blocks.shape
+    H = halos.shape[1]
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    dev = blocks.device
+    ext = 1
+    while ext < depth:
+        ext <<= 1
+    pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
+    reach = pos + avails[:, None]
+    buf = torch.cat(
+        [halos, blocks, rights,
+         torch.zeros((G, ext), dtype=torch.uint8, device=dev)], dim=1,
+    )
+    X = buf[:, H : H + B + ext]
+    best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    dmax = min(dlim, int(reach.max())) if G * B else 0
+    for d in range(1, dmax + 1):
+        # rl[p] = min(run length at distance d, m) after each doubling step
+        rl = (X == buf[:, H - d : H - d + B + ext]).to(torch.int16)
+        m = 1
+        while m < depth:
+            rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
+            m <<= 1
+        runs = torch.minimum(rl[:, :B].to(torch.int32), cap)
+        runs = torch.where(reach >= d, runs, -1)
+        upd = runs > best_l
+        best_l = torch.where(upd, runs, best_l)
+        best_o = torch.where(upd, d, best_o)
+    return best_l, best_o
+
+
+def match_sweep(
+    blocks: torch.Tensor,      # (G, B) uint8
+    halos: torch.Tensor,       # (G, d_limit) uint8
+    rights: torch.Tensor,      # (G, la-1) uint8
+    avails: torch.Tensor,      # (G,) int32
+    valid_exts: torch.Tensor,  # (G,) int32
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 wrapper: (L, O) int32 (G, B) tables for a batch of blocks.
+
+    CUDA tensors launch ``match_kernel`` (or raise); CPU tensors run
+    :func:`match_sweep_plain`.  ``match_sweep.launches`` counts launches.
+    """
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    G, B = blocks.shape
+    if halos.shape != (G, dlim) or rights.shape != (G, depth):
+        raise ValueError(
+            f"matcher needs halos (G, {dlim}) and rights (G, {depth}), got "
+            f"{tuple(halos.shape)} and {tuple(rights.shape)}"
+        )
+    if avails.shape != (G,) or valid_exts.shape != (G,):
+        raise ValueError("avails and valid_exts must be (G,)")
+    for t, dt in ((blocks, torch.uint8), (halos, torch.uint8),
+                  (rights, torch.uint8), (avails, torch.int32),
+                  (valid_exts, torch.int32)):
+        if t.dtype != dt or t.device != blocks.device or not t.is_contiguous():
+            raise ValueError(
+                "matcher inputs must be contiguous uint8 bytes / int32 "
+                "scalars on one device"
+            )
+    if dlim == 0 or depth == 0 or G * B == 0:
+        z = torch.zeros((G, B), dtype=torch.int32, device=blocks.device)
+        return z, z.clone()
+    if not blocks.is_cuda:
+        return match_sweep_plain(
+            blocks, halos, rights, avails, valid_exts, la=la, sb=sb
+        )
+    if G > 65535:
+        raise ValueError("match_kernel takes at most 65535 blocks per batch")
+    lib = _build.kernels()
+    L = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
+    O = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        err = lib.lz77_match(
+            blocks.data_ptr(), halos.data_ptr(), rights.data_ptr(),
+            avails.data_ptr(), valid_exts.data_ptr(),
+            L.data_ptr(), O.data_ptr(), G, B, dlim, depth,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "match_kernel")
+    match_sweep.launches += 1
+    return L, O
+
+
+match_sweep.launches = 0
+
+
+def find_matches(
+    block,
+    halo,
+    right,
+    avail,
+    valid_ext,
+    *,
+    la: int,
+    sb: int,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """True longest match per position.
+
+    Args:
+      block: (B,) or (G, B) uint8 — block bytes (zeros past validity).
+      halo: (H,) or (G, H) uint8, H = d_limit — the input bytes preceding
+        the block, tail-aligned (halo[-1] is the byte before block[0]).
+      right: (la-1,) or (G, la-1) uint8 — input bytes following the block.
+      avail: scalar or (G,) int32 — number of valid bytes at halo's tail.
+      valid_ext: scalar or (G,) int32 — valid input bytes counting from
+        block[0] (includes the right extension; may exceed B).
+      la, sb: codec parameters.
+      device: where to run; ``None`` is the GPU (see ``device.resolve``).
+
+    Returns:
+      (L, O): int32, shaped like ``block``.  L[p] in [0, la-1], capped at
+      ``min(la, valid_ext - p) - 1`` (a negative cap gives 0) so the token's
+      ``next`` byte is always real (lookahead shrinkage, lz77.c:87,134);
+      distances 1..d_limit gated by ``d <= p + avail``; O[p] is the
+      *smallest* distance achieving L[p], 0 when L[p] == 0.
+    """
+    dev = device_lib.resolve(device)
+    blk = torch.as_tensor(block).to(dev)
+    single = blk.dim() == 1
+
+    def prep(a, dtype):
+        t = torch.as_tensor(a).to(device=dev, dtype=dtype)
+        return (t[None] if single else t).contiguous()
+
+    L, O = match_sweep(
+        prep(blk, torch.uint8), prep(halo, torch.uint8),
+        prep(right, torch.uint8), prep(avail, torch.int32),
+        prep(valid_ext, torch.int32), la=la, sb=sb,
+    )
+    return (L[0], O[0]) if single else (L, O)

@@ -1,0 +1,185 @@
+"""Greedy parse + token pack: LOX build, plain PyTorch version, CUDA kernel.
+
+The greedy jump chain ``p <- p + L[p] + 1`` (the reference's encode loop,
+lz77.c:89-136) is the only serial dependency of the encoder once the match
+tables are known.  All per-position inputs are fused into one int32 word per
+byte ("LOX" = next_char<<24 | len<<16 | off), so a token costs two loads:
+the jump word at ``p`` and the next-char word at ``p + len``.
+
+Contract (the JAX package's ``ops.parse_walk``): the walk starts at
+``entry`` in [0, la), emits a token at every chain position
+``p < valid_total``, reads ``next`` at ``p + len`` (which may lie in the
+la-word tail past the span: the last block's right extension), and leaves
+``exit = p - valid_total`` in [0, la) as the next batch's entry.  A token
+word is ``off | len<<ob | next<<(ob+lb)``.  ``entry``, the count and the
+exit are one-element int32 tensors on the device, so batches chain without
+a host round trip.
+
+Kernel note — ``csrc/parse_walk.cu`` replaces the TPU kernel
+``lz77_tpu/ops/parse_walk.py::_kernel``, which walks the chain on the
+scalar unit because that machine has no vector gather.  Hopper has, so the
+walk is the parallel form: the span is cut into sub-blocks; a token
+overhangs a sub-block's end by at most la-1 bytes, so a sub-block's parse
+state is its entry offset.  (1) one thread per (sub-block, entry) walks the
+sub-block and records exit offset and token count; (2) one thread composes
+the maps in order, which gives every sub-block its true entry and its
+output offset, and the total and the exit; (3) one thread per sub-block
+walks again from its true entry and writes packed token words at its
+offset.  The kernel is bound by latency, not by bytes (4 B read per input
+byte, 4 B written per token): every step is a dependent load.  The design
+answers that with width — la * M independent walks in flight hide the
+latency — and leaves the LOX words one flat array in device memory (the
+span's 4 N bytes sit in L2); the staging tiles, the 128-word overlap and
+the la <= 128 limit of the TPU kernel are gone, and la goes up to 255 (the
+LOX length field is 8 bits).  Step (2) is serial over the M sub-blocks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+# Sub-block of the parallel walk.  Larger means fewer serial compose steps
+# and fewer, longer walks; 4096 keeps both under a millisecond for an
+# 8 MiB span.
+DEFAULT_SUB_BLOCK = 4096
+
+
+def build_lox(
+    L_flat: torch.Tensor,
+    O_flat: torch.Tensor,
+    x_flat: torch.Tensor,
+    tail: torch.Tensor,
+    la: int,
+) -> torch.Tensor:
+    """Fuse match tables + bytes into LOX words: (N + la,) int32.
+
+    L_flat/O_flat: (N,) int32 match tables; x_flat: (N,) uint8 input bytes;
+    tail: uint8 bytes following the span (the last block's right extension),
+    cut or zero-padded to ``la`` words that carry only their byte.  The word
+    is assembled as four little-endian bytes (off lo, off hi, len, byte) and
+    reinterpreted, which keeps bytes >= 128 clear of int32 overflow; the
+    byte planes are filled in place to avoid N-sized temporaries.
+    """
+    N = L_flat.shape[0]
+    q = torch.zeros((N + la, 4), dtype=torch.uint8, device=L_flat.device)
+    q[:N, 0] = O_flat & 0xFF
+    q[:N, 1] = O_flat >> 8
+    q[:N, 2] = L_flat
+    q[:N, 3] = x_flat
+    k = min(tail.shape[0], la)
+    q[N : N + k, 3] = tail[:k]
+    return q.view(torch.int32).reshape(N + la)
+
+
+def walk_parse_pack_plain(
+    lox: torch.Tensor,
+    entry: torch.Tensor,
+    valid_total: int,
+    *,
+    la: int,
+    ob: int,
+    lb: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the chain as a pointer-doubling orbit.
+
+    S[i] = f^i(entry) over the jump table f(p) = p + L[p] + 1 (fixpoints at
+    and past ``valid_total``): each round doubles the number of known chain
+    positions with one gather, log2(N) rounds in all.  Token slots past the
+    count are zero.
+    """
+    n_ext = lox.shape[0]
+    N = n_ext - la
+    dev = lox.device
+    w = lox.to(torch.int64)
+    ln = (w >> 16) & 0xFF
+    off = w & 0xFFFF
+    byte = (w >> 24) & 0xFF
+    pos = torch.arange(n_ext, dtype=torch.int64, device=dev)
+    J = torch.where(
+        pos < valid_total, torch.clamp(pos + ln + 1, max=n_ext - 1), pos
+    )
+    S = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    S[0:1] = entry.to(torch.int64).clamp(0, la - 1)
+    m = 1
+    while m <= N:
+        span = min(m, N + 1 - m)
+        S[m : m + span] = J[S[:span]]
+        J = J[J]
+        m *= 2
+    starts = S[:N]
+    valid = starts < valid_total
+    l = ln[starts]
+    word = (
+        off[starts]
+        | (l << ob)
+        | (byte[torch.clamp(starts + l, max=n_ext - 1)] << (ob + lb))
+    )
+    word = torch.where(valid, word, 0)
+    # 32-bit token words set the sign bit: fold into int32's range first
+    word = torch.where(word >= (1 << 31), word - (1 << 32), word)
+    count = valid.sum().to(torch.int32).reshape(1)
+    exit_e = (S[N] - valid_total).to(torch.int32).reshape(1)
+    return word.to(torch.int32), count, exit_e
+
+
+def walk_parse_pack(
+    lox: torch.Tensor,      # (N + la,) int32 LOX words
+    entry: torch.Tensor,    # (1,) int32: parse entry into the span
+    valid_total: int,       # valid bytes in the span, 0..N
+    *,
+    la: int,
+    ob: int,
+    lb: int,
+    sub_block: int = DEFAULT_SUB_BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 wrapper: greedy parse + pack -> (tokens, count, exit_entry).
+
+    ``tokens`` is (N,) int32; its first ``count`` words are the packed
+    tokens of the exact serial parse (the rest is unspecified).  ``count``
+    and ``exit_entry`` are (1,) int32 tensors on ``lox``'s device.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version.  ``walk_parse_pack.launches`` counts launches.
+    """
+    N = lox.shape[0] - la
+    if not 2 <= la <= 255:
+        raise ValueError(f"walk parser supports la in [2, 255], got {la}")
+    if lox.dtype != torch.int32 or lox.dim() != 1 or N < 0 \
+            or not lox.is_contiguous():
+        raise ValueError("lox must be a contiguous (N + la,) int32 tensor")
+    if entry.dtype != torch.int32 or entry.shape != (1,) \
+            or entry.device != lox.device:
+        raise ValueError("entry must be a (1,) int32 tensor on lox's device")
+    if not 0 <= valid_total <= N:
+        raise ValueError(f"valid_total {valid_total} outside [0, {N}]")
+    if N >= (1 << 31) - 256 or sub_block < 1 or ob + lb > 24:
+        raise ValueError("span, sub_block or field widths out of range")
+    if not lox.is_cuda:
+        return walk_parse_pack_plain(
+            lox, entry, valid_total, la=la, ob=ob, lb=lb
+        )
+    lib = _build.kernels()
+    dev = lox.device
+    M = -(-valid_total // sub_block)
+    exit_map = torch.empty(M * la, dtype=torch.uint8, device=dev)
+    cnt_map = torch.empty(M * la, dtype=torch.int32, device=dev)
+    entries = torch.empty(M, dtype=torch.int32, device=dev)
+    offsets = torch.empty(M, dtype=torch.int32, device=dev)
+    tokens = torch.empty(N, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    exit_e = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lz77_walk_parse_pack(
+            lox.data_ptr(), entry.data_ptr(), exit_map.data_ptr(),
+            cnt_map.data_ptr(), entries.data_ptr(), offsets.data_ptr(),
+            tokens.data_ptr(), count.data_ptr(), exit_e.data_ptr(),
+            valid_total, sub_block, la, ob, lb,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "walk_parse_pack_kernel")
+    walk_parse_pack.launches += 1
+    return tokens, count, exit_e
+
+
+walk_parse_pack.launches = 0

@@ -1,0 +1,157 @@
+"""Package rules of the port: what it imports, where it runs, what it
+carries across from the JAX package."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lz77_tpu
+import lz77_tpu_torch
+from lz77_tpu_torch import _build, convert, device
+from lz77_tpu_torch.models import fused
+from lz77_tpu_torch.ops import decode_walk, match, parse_walk
+
+torch.set_num_threads(1)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    neither ``jax`` nor ``lz77_tpu`` in ``sys.modules``."""
+    names = ["lz77_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(
+            lz77_tpu_torch.__path__, "lz77_tpu_torch."
+        )
+    ]
+    assert {"lz77_tpu_torch.ops.match", "lz77_tpu_torch.models.fused",
+            "lz77_tpu_torch.convert", "lz77_tpu_torch.native"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lz77_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_default_device_raises_without_a_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lz77_tpu_torch.compress(b"x")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lz77_tpu_torch.decompress(lz77_tpu.compress(b"x", backend="numpy"))
+    assert device.resolve("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, device="cuda"),
+        lambda: fused.encode_batch_walk(
+            np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
+            np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
+            np.full(1, 8, np.int32), 8, 0, la=15, sb=4095, device="cuda"),
+        lambda: fused.encode_bytes_fused(b"abc", device="cuda"),
+        lambda: decode_walk.decode_tokens_walk(
+            np.array([0]), np.array([0]), np.array([65]), off_bits=12,
+            device="cuda"),
+    ],
+    ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
+         "decode_tokens_walk"],
+)
+def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
+    _no_card()
+    before = (match.match_sweep.launches, parse_walk.walk_parse_pack.launches,
+              decode_walk.walk_decode.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert before == (match.match_sweep.launches,
+                      parse_walk.walk_parse_pack.launches,
+                      decode_walk.walk_decode.launches)
+
+
+def test_kernel_build_raises_without_nvcc():
+    """The kernels are built from source at first use; a machine without
+    the CUDA toolkit gets an error that says so, not a fallback."""
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.kernels()
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
+    data = bytes(rng.integers(0, 3, 400, dtype=np.uint8))
+    s = lz77_tpu_torch.compress(data, device="cpu")
+    assert lz77_tpu_torch.decompress(s, device="cpu") == data
+    assert match.match_sweep.launches == 0
+    assert parse_walk.walk_parse_pack.launches == 0
+    assert decode_walk.walk_decode.launches == 0
+
+
+def test_convert_params_and_batch():
+    p = convert.params_from_reference(np.int64(16), np.int32(4095))
+    assert (p.la, p.sb, p.width) == (16, 4095, 24)
+    assert p == lz77_tpu_torch.Params(16, 4095)
+    with pytest.raises(ValueError):
+        convert.params_from_reference(1, 4095)
+    gb = np.arange(12, dtype=np.int64).reshape(2, 6)
+    out = convert.batch_from_numpy(
+        gb, np.zeros((2, 3)), np.zeros((2, 1)), [0, 3], [7, 6],
+        np.int32(12), np.int32(2), device="cpu",
+    )
+    blocks, halos, rights, avails, vexts, vt, entry = out
+    assert blocks.dtype == halos.dtype == rights.dtype == torch.uint8
+    assert avails.dtype == vexts.dtype == entry.dtype == torch.int32
+    assert entry.shape == (1,) and int(entry) == 2 and vt == 12
+    np.testing.assert_array_equal(blocks.numpy(), gb)
+
+
+def test_convert_tables_lox_and_tokens_round_trip(rng):
+    """LOX and decode words unpack to the fields that went in, bytes >= 128
+    (sign bit of the int32 word) included."""
+    N, la = 50, 15
+    L = rng.integers(0, 15, N)
+    O = rng.integers(0, 65536, N)
+    x = rng.integers(0, 256, N, dtype=np.uint8)
+    tail = rng.integers(128, 256, 14, dtype=np.uint8)
+    Lt, Ot = convert.tables_from_numpy(L.reshape(5, 10), O.reshape(5, 10), "cpu")
+    assert Lt.dtype == Ot.dtype == torch.int32 and Lt.shape == (5, 10)
+    lox = convert.lox_from_numpy(L, O, x, tail, la, device="cpu")
+    w = lox.numpy().view(np.uint32)
+    assert w.shape == (N + la,)
+    np.testing.assert_array_equal(w[:N] & 0xFFFF, O)
+    np.testing.assert_array_equal((w[:N] >> 16) & 0xFF, L)
+    np.testing.assert_array_equal(w[:N] >> 24, x)
+    np.testing.assert_array_equal(w[N : N + 14], tail.astype(np.uint32) << 24)
+    assert w[N + 14] == 0
+
+    off = rng.integers(0, 65536, 40)
+    ln = rng.integers(0, 255, 40)
+    nxt = rng.integers(0, 256, 40)
+    t = convert.tokens_from_numpy(off, ln, nxt, device="cpu")
+    assert t.dtype == torch.int32
+    u = t.numpy().view(np.uint32)
+    np.testing.assert_array_equal(u & 0xFFFF, off)
+    np.testing.assert_array_equal((u >> 16) & 0xFF, ln)
+    np.testing.assert_array_equal(u >> 24, nxt)
