@@ -4,16 +4,28 @@
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py [--seed 0] [--text-mib 32] [--profile]
+                          [--profile-dir build/profile]
 
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives the main path once: ``compress`` and
-``decompress`` of word-salad text plus 4 MiB of zeros and 4 MiB of random
-bytes at the reference defaults, checked byte for byte against the native
-host codec.  Each phase prints one JSON line; any failed check raises and
-the exit code is non-zero.  Without a CUDA device it exits non-zero at once:
-nothing here runs on the CPU instead.
+shape, times both, and then drives two paths, each once, with the kernels'
+launch counts set to 0 just before and read just after:
+
+* the library path: ``compress`` and ``decompress`` of word-salad text plus
+  4 MiB of zeros and 4 MiB of random bytes at the reference defaults,
+  checked byte for byte against the native host codec;
+* the CLI path, file to file through ``lz77_tpu_torch.cli.main``: encode
+  with the host-parse pipeline and the chunk matcher under a manifest, the
+  same encode killed after two batches and finished with ``--resume``, the
+  streamed device decode, an unaligned token width (``-l 8 -s 500``) on
+  8 MiB, the fused pipeline on files, and the packed-word decode through
+  its public function; every stream equal to the native encoder's and every
+  decoded file equal to its input.
+
+Each phase prints one JSON line; any failed check raises and the exit code
+is non-zero.  Without a CUDA device it exits non-zero at once: nothing here
+runs on the CPU instead.
 
 The default 32 MiB of text (40 MiB in all, five 8 MiB batches) is sized so
 the whole script, builds included, ends well inside twenty minutes.
@@ -22,19 +34,24 @@ the whole script, builds included, ends well inside twenty minutes.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import lz77_tpu_torch as lt
-from lz77_tpu_torch import _build, bitio, native, spec
+from lz77_tpu_torch import _build, bitio, cli, native, spec
 from lz77_tpu_torch.models import codec
-from lz77_tpu_torch.ops import decode_walk, match, parse_walk
+from lz77_tpu_torch.ops import decode_walk, match, match_chunk, parse_walk
+from lz77_tpu_torch.utils import faults, profiling
 
 HBM_BYTES_PER_S = 3.35e12
 # Byte compares are integer ALU work outside the tensor cores.  Assumed peak:
@@ -46,6 +63,8 @@ WRAPPERS = {
     "match_kernel": match.match_sweep,
     "walk_parse_pack_kernel": parse_walk.walk_parse_pack,
     "walk_decode_kernel": decode_walk.walk_decode,
+    "match_chunk_kernel": match_chunk.match_chunk,
+    "decode_packed_kernel": decode_walk.walk_decode_packed,
 }
 KERNEL_INFO = {
     "match_kernel": ("lz77_tpu_torch/csrc/match.cu",
@@ -54,7 +73,15 @@ KERNEL_INFO = {
                                "lz77_tpu/ops/parse_walk.py:47"),
     "walk_decode_kernel": ("lz77_tpu_torch/csrc/decode_walk.cu",
                            "lz77_tpu/ops/decode_walk.py:62"),
+    "match_chunk_kernel": ("lz77_tpu_torch/csrc/match_chunk.cu",
+                           "lz77_tpu/ops/pallas_match.py:53"),
+    "decode_packed_kernel": ("lz77_tpu_torch/csrc/decode_walk_packed.cu",
+                             "lz77_tpu/ops/decode_walk.py:316"),
 }
+# the kernels each driven path must launch at least once
+LIBRARY_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                        "walk_decode_kernel")
+CLI_PATH_KERNELS = tuple(WRAPPERS)
 
 
 def emit(obj) -> None:
@@ -115,17 +142,29 @@ def batch_on_card(x: np.ndarray, g0: int, G: int, B: int, p: spec.Params):
 
 # ---------------------------------------------------------------- K1 -----
 
-def check_match(name, x, g0, G, B, p, reps=0):
-    """Kernel vs plain on one batch; returns the record (timed if reps)."""
+def check_match(name, x, g0, G, B, p, reps=0, kernel="match_kernel"):
+    """Kernel vs plain on one batch; returns the record (timed if reps).
+
+    ``kernel``: "match_kernel" (K1) or "match_chunk_kernel" (K4, which is
+    also held against K1's tables on the same batch)."""
+    fn, plain = {
+        "match_kernel": (match.match_sweep, match.match_sweep_plain),
+        "match_chunk_kernel": (match_chunk.match_chunk,
+                               match_chunk.match_chunk_plain),
+    }[kernel]
     args, _ = batch_on_card(x, g0, G, B, p)
-    L, O = match.match_sweep(*args, la=p.la, sb=p.sb)
-    Lp, Op = match.match_sweep_plain(*args, la=p.la, sb=p.sb)
+    L, O = fn(*args, la=p.la, sb=p.sb)
+    Lp, Op = plain(*args, la=p.la, sb=p.sb)
     torch.cuda.synchronize()
     err = max(max_err(L, Lp), max_err(O, Op))
-    rec = {"kernel": "match_kernel", "case": name, "la": p.la, "sb": p.sb,
+    rec = {"kernel": kernel, "case": name, "la": p.la, "sb": p.sb,
            "shape": [len(args[0]), B], "max_abs_err": err}
+    if kernel == "match_chunk_kernel":
+        L1, O1 = match.match_sweep(*args, la=p.la, sb=p.sb)
+        rec["max_abs_err_vs_match_kernel"] = max(max_err(L, L1), max_err(O, O1))
+        err = max(err, rec["max_abs_err_vs_match_kernel"])
     if err != 0:
-        raise AssertionError(f"match_kernel disagrees with plain: {rec}")
+        raise AssertionError(f"{kernel} disagrees: {rec}")
     if reps:
         blocks, halos, rights, avails, vexts = args
         pos = torch.arange(B, device="cuda", dtype=torch.int64)[None, :]
@@ -137,9 +176,8 @@ def check_match(name, x, g0, G, B, p, reps=0):
         ops = int(swept.sum())
         nbytes = sum(t.numel() * t.element_size() for t in (*args, L, O))
         rec.update(
-            ms=time_ms(lambda: match.match_sweep(*args, la=p.la, sb=p.sb), reps),
-            plain_ms=time_ms(
-                lambda: match.match_sweep_plain(*args, la=p.la, sb=p.sb), 1),
+            ms=time_ms(lambda: fn(*args, la=p.la, sb=p.sb), reps),
+            plain_ms=time_ms(lambda: plain(*args, la=p.la, sb=p.sb), 1),
             bytes=nbytes, compares=ops,
             exhaustive_compares=int(dmax.sum()),
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -216,20 +254,222 @@ def check_decode(name, stream: bytes, data: bytes, reps=0, split=None):
     return rec
 
 
-def profile_main_path(data: bytes, stream: bytes):
-    """Device time by kernel name over one more compress + decompress."""
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------- K6 -----
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def check_decode_packed(name, stream: bytes, data: bytes, reps=0):
+    """Packed-word kernel vs its plain version and vs K3's bytes."""
+    p, off, ln, nxt = bitio.parse_stream(stream)
+    toks = torch.from_numpy(decode_walk.pack_token_words(off, ln, nxt)).cuda()
+    T = toks.shape[0]
+    kw = dict(off_bits=p.off_bits, out_cap_words=len(data) // 4 + 2)
+    out, cnt = decode_walk.walk_decode_packed(toks, T, **kw)
+    outp, cntp = decode_walk.walk_decode_packed_plain(
+        toks, T, out_cap_words=kw["out_cap_words"])
+    ref, _ = decode_walk.walk_decode(toks, T, out_cap=len(data))
+    torch.cuda.synchronize()
+    got = out.view(torch.uint8)[: len(data)]
+    err = max(max_err(out, outp), max_err(cnt, cntp), max_err(got, ref))
+    rec = {"kernel": "decode_packed_kernel", "case": name, "tokens": T,
+           "out_bytes": len(data), "off_bits": p.off_bits, "max_abs_err": err}
+    if err != 0 or int(cnt) != len(data) \
+            or got.cpu().numpy().tobytes() != data:
+        raise AssertionError(f"decode_packed_kernel wrong: {rec}")
+    if reps:
+        nbytes = T * 4 + len(data) + 4
+        rec.update(
+            ms=time_ms(
+                lambda: decode_walk.walk_decode_packed(toks, T, **kw), reps),
+            plain_ms=time_ms(lambda: decode_walk.walk_decode_packed_plain(
+                toks, T, out_cap_words=kw["out_cap_words"]), 1),
+            bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_ms=len(data) / INT_OPS_PER_S * 1e3,  # one move per byte
+        )
+        rec["ns_per_token"] = rec["ms"] * 1e6 / T
+    return rec
+
+
+# ---------------------------------------------------------- CLI path -----
+
+def run_cli(argv, expect_rc=0):
+    """``cli.main(argv + ["--report"])`` -> the run report (or None); the
+    CLI's stderr is captured, and shown if the exit code is not expected."""
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv) + ["--report"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = err.getvalue()
+    if rc != expect_rc:
+        raise AssertionError(f"cli {argv}: exit {rc}, stderr: {text[-2000:]}")
+    lines = [ln for ln in text.strip().splitlines() if ln.startswith("{")]
+    rep = json.loads(lines[-1]) if lines and rc == 0 else {}
+    rep["wall_s"] = dt
+    return rep
+
+
+@contextlib.contextmanager
+def injected_fault(fail_batches):
+    """While active, ``codec.encode_file`` (what the CLI calls) runs with a
+    fault injector that fails the given batches: a deterministic kill."""
+    orig = codec.encode_file
+
+    def faulty(*a, **k):
+        return orig(*a, fault_injector=faults.FaultInjector(fail_batches), **k)
+
+    codec.encode_file = faulty
+    try:
+        yield
+    finally:
+        codec.encode_file = orig
+
+
+def read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def drive_cli_path(data: bytes, ref_stream: bytes, tmp: str):
+    """The CLI path, file to file; returns the ``cli`` record.  Raises on
+    any stream or file that differs from its reference."""
+    G = codec.DEFAULT_BATCH_BLOCKS
+    inp, out, man = (os.path.join(tmp, n) for n in ("in", "out.lz", "m.json"))
+    with open(inp, "wb") as f:
+        f.write(data)
+    host = ["-c", "-i", inp, "-o", out, "--pipeline", "host",
+            "--matcher", "chunk", "--manifest", man]
+    rec = {"input_bytes": len(data)}
+
+    # 1. encode under a manifest, host-parse pipeline, chunk matcher (K4)
+    enc = run_cli(host)
+    if read(out) != ref_stream:
+        raise AssertionError("cli host-pipeline stream != native.encode")
+    if os.path.exists(man) or os.path.exists(out + ".partial"):
+        raise AssertionError("manifest or scratch left behind")
+    os.unlink(out)
+
+    # 2. the same encode killed after two batches, then finished by --resume
+    with injected_fault({3: 3}):
+        run_cli(host, expect_rc=1)
+    with open(man) as f:
+        done = len(json.load(f)["blocks"])
+    if done != 2 * G or os.path.exists(out):
+        raise AssertionError(f"kill left {done} block records, want {2 * G}")
+    k4 = match_chunk.match_chunk.launches
+    res = run_cli(host + ["--resume"])
+    resumed_batches = match_chunk.match_chunk.launches - k4
+    batches = -(-len(data) // (G * codec.DEFAULT_BLOCK_SIZE))
+    if read(out) != ref_stream or resumed_batches != batches - 2:
+        raise AssertionError(
+            f"resumed stream differs, or {resumed_batches} batches re-run")
+
+    # 3. streamed device decode (K3 chained stage by stage)
+    back = os.path.join(tmp, "round")
+    k3 = decode_walk.walk_decode.launches
+    dec = run_cli(["-d", "-i", out, "-o", back, "--decode-backend", "device"])
+    stages = decode_walk.walk_decode.launches - k3
+    if read(back) != data or stages < 2 \
+            or dec["decode_backend"] != "device-walk-streamed":
+        raise AssertionError(f"cli device decode wrong: {dec}, {stages} stages")
+    # the same decode once more through the function the CLI calls, for the
+    # host seconds by phase that the CLI's report does not carry
+    dst = codec.DecodeStats()
+    codec.decode_file(out, back, backend="device", stats=dst)
+    if read(back) != data:
+        raise AssertionError("codec.decode_file(device) != input")
+
+    # 4. a token width that is no byte multiple: -l 8 -s 500 (20 bits), 8 MiB
+    small = data[: 8 << 20]
+    p20 = spec.Params(8, 500)
+    sin, sout = os.path.join(tmp, "in8"), os.path.join(tmp, "out8.lz")
+    with open(sin, "wb") as f:
+        f.write(small)
+    un = run_cli(["-c", "-i", sin, "-o", sout, "-l", "8", "-s", "500",
+                  "--matcher", "chunk"])
+    if read(sout) != native.encode(small, p20):
+        raise AssertionError("cli -l 8 -s 500 stream != native.encode")
+    und = run_cli(["-d", "-i", sout, "-o", back, "--decode-backend", "device"])
+    if read(back) != small:
+        raise AssertionError("cli -l 8 -s 500 round trip differs")
+
+    # 5. the fused pipeline on files (K1 + K2)
+    fus = run_cli(["-c", "-i", inp, "-o", out, "--pipeline", "fused"])
+    if read(out) != ref_stream:
+        raise AssertionError("cli fused-pipeline stream != native.encode")
+
+    # 6. the packed-word decode (K6), through its public function
+    p, off, ln, nxt = bitio.parse_stream(ref_stream)
+    t0 = time.perf_counter()
+    if decode_walk.decode_tokens_walk_packed(
+            off, ln, nxt, off_bits=p.off_bits) != data:
+        raise AssertionError("decode_tokens_walk_packed != input")
+    packed_s = time.perf_counter() - t0
+
+    mb = len(data) / 1e6
+    rec.update({
+        "encode_s": enc["wall_s"], "encode_MB_s": mb / enc["wall_s"],
+        "decode_s": dec["wall_s"], "decode_MB_s": mb / dec["wall_s"],
+        "pipeline": enc["pipeline"], "matcher": enc["matcher"],
+        "tokens": enc["tokens"], "blocks": enc["blocks"],
+        "phases": enc["phases"], "h2d_bytes": enc["h2d_bytes"],
+        "d2h_bytes": enc["d2h_bytes"], "page_release": enc["page_release"],
+        "resume_s": res["wall_s"], "resumed_batches": resumed_batches,
+        "decode_backend": dec["decode_backend"], "decode_stages": stages,
+        "decode_phases": dst.phases,
+        "unaligned": {"la": 8, "sb": 500, "width": p20.width,
+                      "input_bytes": len(small), "encode_s": un["wall_s"],
+                      "encode_MB_s": len(small) / 1e6 / un["wall_s"],
+                      "phases": un["phases"], "decode_s": und["wall_s"]},
+        "fused_encode_s": fus["wall_s"],
+        "fused_encode_MB_s": mb / fus["wall_s"], "fused_phases": fus["phases"],
+        "packed_decode_s": packed_s,
+        "peak_rss_mb": max(r["peak_rss_mb"] for r in (enc, dec, un, fus)),
+        "stream_equals_native": True, "resumed_equals_native": True,
+        "unaligned_equals_native": True, "fused_equals_native": True,
+        "roundtrip": True,
+    })
+    return rec
+
+
+def profile_summary(profile_dir: str, name: str):
+    """Device time by kernel and the device's idle share of one traced
+    region, from the numbers ``utils.profiling.trace`` wrote."""
+    with open(os.path.join(profile_dir, name, "key_averages.json")) as f:
+        d = json.load(f)
+    rows = sorted((r for r in d["rows"]
+                   if r["on_device"] and r["self_device_us"] > 0),
+                  key=lambda r: -r["self_device_us"])
+    busy = sum(r["self_device_us"] for r in rows)
+    return {
+        "call": name, "wall_ms": d["wall_us"] / 1e3, "device_ms": busy / 1e3,
+        "device_idle_share": 1 - busy / d["wall_us"],
+        "by_kernel": [{"name": r["name"][:80], "calls": r["calls"],
+                       "device_ms": r["self_device_us"] / 1e3}
+                      for r in rows[:20]],
+    }
+
+
+def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
+    """Both paths once more under the profiler: the library calls inside
+    ``profiling.trace``, three CLI calls under ``--profile DIR``."""
+    with profiling.trace(os.path.join(pdir, "library_compress")):
         lt.compress(data)
+    with profiling.trace(os.path.join(pdir, "library_decompress")):
         lt.decompress(stream)
-        torch.cuda.synchronize()
-    rows = [
-        (e.key, e.count, getattr(e, "device_time_total", 0) / 1e3)
-        for e in prof.key_averages()
-    ]
-    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-    return [{"name": k[:80], "calls": c, "device_ms": ms} for k, c, ms in rows[:30]]
+    inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out.lz")
+    calls = {
+        "cli_encode_host_chunk": ["-c", "-i", inp, "-o", out, "--pipeline",
+                                  "host", "--matcher", "chunk"],
+        "cli_encode_host_sweep": ["-c", "-i", inp, "-o", out, "--pipeline",
+                                  "host", "--matcher", "sweep"],
+        "cli_decode_device": ["-d", "-i", out, "-o",
+                              os.path.join(tmp, "round"),
+                              "--decode-backend", "device"],
+    }
+    for name, argv in calls.items():
+        run_cli(argv + ["--profile", os.path.join(pdir, name)])
+    return [profile_summary(pdir, name) for name in
+            ("library_compress", "library_decompress", *calls)]
 
 
 def main() -> int:
@@ -238,7 +478,11 @@ def main() -> int:
     ap.add_argument("--text-mib", type=int, default=32,
                     help="MiB of text in the main-path input (>= 8)")
     ap.add_argument("--profile", action="store_true",
-                    help="also print the main path's device time by kernel")
+                    help="also print both paths' device time by kernel "
+                         "(the CLI calls run under --profile DIR)")
+    ap.add_argument("--profile-dir", default=os.path.join("build", "profile"),
+                    help="where --profile lets the CLI calls write their "
+                         "traces")
     a = ap.parse_args()
     if a.text_mib < 8:
         ap.error("--text-mib must be at least 8 (16 MiB of input in all)")
@@ -288,6 +532,21 @@ def main() -> int:
     rec, _ = check_match("far_offsets", far, 1, 2, 30000, spec.Params(129, 65535))
     checks.append(rec)
 
+    # K4 small, against its plain version and against K1: the same cases,
+    # the deepest la with the widest window, the shallowest la, a block
+    # length that is no multiple of anything
+    for name, p, B in (("default", p0, 1800),
+                       ("la255_sb255", spec.Params(255, 255), 1800),
+                       ("la255_sb65535", spec.Params(255, 65535), 2500),
+                       ("la4_sb4096", spec.Params(4, 4096), 1800),
+                       ("la2_sb3", spec.Params(2, 3), 701)):
+        rec, _ = check_match(name, small, 0, 3, B, p,
+                             kernel="match_chunk_kernel")
+        checks.append(rec)
+    rec, _ = check_match("far_offsets", far, 1, 2, 30000,
+                         spec.Params(255, 65535), kernel="match_chunk_kernel")
+    checks.append(rec)
+
     # K3 small: text, off=1/2/3 runs, widest window, priming window
     for name, d, p in (
         ("text", make_text(rng, 50000).tobytes(), p0),
@@ -300,6 +559,24 @@ def main() -> int:
         T = spec.token_count(len(s) - 4, p.width)
         for k in {1, T // 3, T - 1} - {0, T}:
             checks.append(check_decode(f"{name}_primed_at_{k}", s, d, split=k))
+        checks.append(check_decode_packed(name, s, d))
+    # K6 alone: runs-heavy input, off 2-3 patterns of every phase against
+    # the word grid, sources that straddle words, the deepest la (copies
+    # long enough for the warp to share: off == 1 and far offsets)
+    for name, d, p in (
+        ("runs", b"".join(bytes([i]) * (i * 37 % 900 + 1) for i in range(256)),
+         p0),
+        ("off2_3", b"".join(b"xy" * (i % 50 + 2) + b"pqr" * (i % 40 + 2) +
+                            bytes([i % 251]) for i in range(300)), p0),
+        ("off4_7", b"abcd" * 3000 + b"abcdefg" * 3000 + b"abcde" * 3000, p0),
+        ("la255", b"abcdefghijk" * 3000 + bytes(5000), spec.Params(255, 4095)),
+        # long copies from far back: the path the whole warp shares
+        ("la255_far", make_text(rng, 301).tobytes() * 60 +
+         rng.integers(0, 256, 777, dtype=np.uint8).tobytes() * 9,
+         spec.Params(255, 4095)),
+    ):
+        checks.append(check_decode_packed(name, native.encode(d, p), d))
+    del s, d
 
     # main-path shapes: the second 8 MiB text batch; the whole stream
     G, B = codec.DEFAULT_BATCH_BLOCKS, codec.DEFAULT_BLOCK_SIZE
@@ -307,14 +584,27 @@ def main() -> int:
     rec2 = check_walk("main_path_batch", args, L, O, G * B, 0, p0,
                       parse_walk.DEFAULT_SUB_BLOCK, reps=10)
     del args, L, O
+    rec4, _ = check_match("main_path_batch", x, G, G, B, p0, reps=5,
+                          kernel="match_chunk_kernel")
     ref_stream = native.encode(data, p0)
     rec3 = check_decode("main_path_stream", ref_stream, data, reps=3)
-    checks += [rec1, rec2, rec3]
+    rec6 = check_decode_packed("main_path_stream", ref_stream, data, reps=1)
+    checks += [rec1, rec2, rec3, rec4, rec6]
     emit({"kernel_checks": checks, "tolerance": 0})
 
-    # ---- the main path, once, through the public entry points ----------
-    for w in WRAPPERS.values():
-        w.launches = 0
+    def reset_counts():
+        for w in WRAPPERS.values():
+            w.launches = 0
+
+    def read_counts(must_launch, what):
+        counts = {k: w.launches for k, w in WRAPPERS.items()}
+        idle = [k for k in must_launch if counts[k] < 1]
+        if idle:
+            raise AssertionError(f"{what} never launched {idle}: {counts}")
+        return counts
+
+    # ---- the library path, once, through the public entry points --------
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     st = codec.EncodeStats()
     t0 = time.perf_counter()
@@ -325,7 +615,7 @@ def main() -> int:
     back = lt.decompress(stream)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_counts(LIBRARY_PATH_KERNELS, "the library path")
     peak = torch.cuda.max_memory_allocated()
     if stream != ref_stream:
         raise AssertionError("stream differs from native.encode")
@@ -334,8 +624,7 @@ def main() -> int:
     if native.decode(stream) != data:
         raise AssertionError("native.decode(stream) != x")
     batches = -(-st.blocks // G)
-    if batches < min(4, -(-len(data) // (G * B))) \
-            or any(v < 1 for v in launches.values()):
+    if batches < min(4, -(-len(data) // (G * B))):
         raise AssertionError(f"main path: {batches} batches, {launches}")
     emit({"main_path": {
         "la": p0.la, "sb": p0.sb, "input_bytes": len(data),
@@ -348,15 +637,27 @@ def main() -> int:
         "roundtrip": True, "native_decode": True,
     }})
 
-    if a.profile:
-        emit({"profile": profile_main_path(data, stream)})
+    # ---- the CLI path, once, file to file through cli.main --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cli_rec = drive_cli_path(data, ref_stream, tmp)
+        cli_launches = read_counts(CLI_PATH_KERNELS, "the CLI path")
+        cli_rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        cli_rec["launches"] = cli_launches
+        emit({"cli": cli_rec})
+
+        if a.profile:
+            emit({"profile": profile_paths(data, stream, tmp, a.profile_dir)})
 
     kernels = []
-    for rec in (rec1, rec2, rec3):
+    for rec in (rec1, rec2, rec3, rec4, rec6):
         name = rec["kernel"]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-            "replaces": KERNEL_INFO[name][1], "launches": launches[name],
+            "replaces": KERNEL_INFO[name][1],
+            # launches over the two driven paths together
+            "launches": launches[name] + cli_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": max(rec["bytes_ms"], rec["ops_ms"]),

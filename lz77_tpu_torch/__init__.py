@@ -9,12 +9,17 @@ written by hand in CUDA C++ (``csrc/``, built at first use).  It imports
 Layering:
 
 * ``spec`` / ``bitio``  — format contract + host bitstream codec
-* ``ops``               — match sweep, walk parse + pack, walk decode: each
-                          a contract, a plain PyTorch version and a kernel
-* ``models``            — fused encode pipeline, bytes-level codec, the
-                          numpy spec model and host decoder
-* ``utils``             — metrics, retries
-* ``native``            — ctypes binding of the C++ host codec (oracle)
+* ``ops``               — match sweep and match chunk, walk parse + pack,
+                          walk decode (parallel and packed-word): each a
+                          contract, a plain PyTorch version and a kernel
+* ``models``            — fused and host-parse encode pipelines, bytes- and
+                          file-level codec (manifest/resume, streamed device
+                          decode), the numpy spec model and host decoder
+* ``utils``             — metrics, retries + fault injection, manifest,
+                          profiling
+* ``native``            — ctypes binding of the C++ host codec (oracle,
+                          host parse/pack helpers, streamed file codec)
+* ``cli``               — the reference-compatible command line
 * ``device`` / ``_build`` — the device rule; kernel build and load
 * ``convert``           — the JAX package's values -> this package's tensors
 
@@ -39,9 +44,11 @@ def compress(
 ) -> bytes:
     """One-call encode to a complete reference-format stream.
 
-    ``backend``: "device" (the fused device pipeline on ``device``; kwargs:
-    block_size, batch_blocks, sub_block, stats), "native" (C++ host
-    encoder) or "numpy" (executable spec).  All emit byte-identical streams.
+    ``backend``: "device" (a device pipeline on ``device``; kwargs:
+    pipeline — "fused" by default, or "host" for any token width —
+    block_size, batch_blocks, sub_block, matcher, stats), "native" (C++
+    host encoder) or "numpy" (executable spec).  All emit byte-identical
+    streams.
     """
     params = Params(la=la, sb=sb)
     if backend == "device":
@@ -68,4 +75,45 @@ def decompress(data: bytes, *, backend: str = "device", device=None) -> bytes:
     return codec.decode_bytes(data, backend=backend, device=device)
 
 
-__all__ = ["spec", "Params", "compress", "decompress", "__version__"]
+def compress_file(
+    in_path: str,
+    out_path: str,
+    la: int = spec.DEFAULT_LA_SIZE,
+    sb: int = spec.DEFAULT_SB_SIZE,
+    *,
+    pipeline: str = "host",
+    device=None,
+    **kwargs,
+) -> None:
+    """File-to-file encode in bounded memory (memmap input, streamed output).
+
+    ``pipeline``: "host" (device match + host parse, any token width) or
+    "fused" (device-resident match+parse+pack); kwargs pass through to
+    ``models.codec.encode_file`` (``manifest_path``/``resume`` for
+    checkpointing, ``block_size``, ``matcher``, ...).
+    """
+    from .models import codec
+
+    codec.encode_file(
+        in_path, out_path, Params(la=la, sb=sb), pipeline=pipeline,
+        device=device, **kwargs,
+    )
+
+
+def decompress_file(in_path: str, out_path: str, *, backend: str = "device",
+                    device=None, **kwargs) -> int:
+    """File-to-file decode at bounded host memory (any stream size); returns
+    the decoded byte count.  ``backend``: "device" (the walk-decode kernel,
+    chained stage by stage), "native" (the C++ streamed decoder, the
+    reference's capability, lz77.c:148-197) or "host"."""
+    from .models import codec
+
+    return codec.decode_file(
+        in_path, out_path, backend=backend, device=device, **kwargs
+    )
+
+
+__all__ = [
+    "spec", "Params", "compress", "decompress", "compress_file",
+    "decompress_file", "__version__",
+]

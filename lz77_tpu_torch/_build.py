@@ -26,7 +26,8 @@ _ROOT = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
 
-KERNEL_SOURCES = ("match.cu", "parse_walk.cu", "decode_walk.cu")
+KERNEL_SOURCES = ("match.cu", "match_chunk.cu", "parse_walk.cu",
+                  "decode_walk.cu", "decode_walk_packed.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,12 +39,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _KERNEL_ARGTYPES = {
     # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth, stream
     "lz77_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lz77_match_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lox, entry, exit_map, cnt_map, entries, offsets, tokens, count, exit,
     # valid_total, sub_block, la, ob, lb, stream
     "lz77_walk_parse_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
     # tokens, T, buf, wp, out_cap, count, sums, ptr, flags, rounds, stream
     "lz77_walk_decode": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _I, _P],
+    # tokens, T, out, out_cap_words, count, off_bits, stream
+    "lz77_walk_decode_packed": [_P, _I, _P, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

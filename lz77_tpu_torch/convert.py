@@ -1,8 +1,10 @@
 """State carried across from the JAX package, as plain Python and numpy.
 
 The codec has no weights.  What the two packages must agree on is the
-format parameters and the per-batch state: the (G, B) batch inputs, the
-match tables, the LOX words and the token fields.  These functions turn
+format parameters, the per-batch state — the (G, B) batch inputs, the
+match tables (full and compact), the LOX words and the token fields — and
+the checkpoint manifest of a file encode, which either package may write
+and the other resume.  These functions turn
 the JAX package's values — handed over as Python ints and numpy arrays,
 never as jax arrays — into this package's tensors, with its dtypes, on the
 device asked for.  The tests push the same numpy inputs through both
@@ -17,6 +19,7 @@ import torch
 from . import device as device_lib
 from . import spec
 from .ops import decode_walk, parse_walk
+from .utils import manifest as manifest_lib
 
 
 def _tensor(a, np_dtype, dev) -> torch.Tensor:
@@ -71,3 +74,25 @@ def tokens_from_numpy(off, ln, nxt, device=None) -> torch.Tensor:
             np.asarray(off), np.asarray(ln), np.asarray(nxt)
         )
     ).to(dev)
+
+
+def compact_from_numpy(packed_L, O16, device=None):
+    """The compact match outputs of the JAX package's
+    ``match_blocks_compact`` (nibble-packed or bytewise uint8 lengths, uint16
+    offsets) -> this package's pair: uint8 lengths as they are, offsets as
+    an int16 tensor carrying the uint16 bit pattern (what
+    ``models.encoder.gather_offsets`` reads)."""
+    dev = device_lib.resolve(device)
+    o16 = np.array(O16, dtype=np.uint16).view(np.int16)
+    return _tensor(packed_L, np.uint8, dev), torch.from_numpy(o16).to(dev)
+
+
+def manifest_from_dict(d: dict) -> manifest_lib.Manifest:
+    """A manifest as the JAX package's ``utils.manifest`` writes it (the
+    parsed JSON) -> this package's ``Manifest``."""
+    return manifest_lib.Manifest.from_dict(d)
+
+
+def manifest_to_dict(m: manifest_lib.Manifest) -> dict:
+    """This package's ``Manifest`` -> the dict both packages store as JSON."""
+    return m.to_dict()

@@ -1,7 +1,10 @@
 """ctypes binding of the native host codec (``native/lz77host.cpp``).
 
 Own copy of the part of the JAX package's binding that this package uses:
-whole-buffer ``encode`` and ``decode``.  Both packages bind the same C++
+whole-buffer ``encode`` and ``decode``, the host-parse pipeline's helpers
+(``parse_block``, ``pack_tokens``, ``pack_tokens_phase``, ``unpack_tokens``)
+and the bounded-memory file codec (``DecodeStream`` / ``decode_file``,
+``EncodeStream`` / ``encode_file``).  Both packages bind the same C++
 source, which emits streams byte-identical to the device path (same exact
 longest match, smallest offset), so it is the fast independent oracle at
 sizes where the numpy spec model is far too slow, and the
@@ -50,10 +53,51 @@ def load() -> ctypes.CDLL:
             ],
             "lz77_decode_bound": [ctypes.c_void_p, ctypes.c_int64],
             "lz77_encode_bound": [ctypes.c_int64, ctypes.c_int, ctypes.c_int],
+            "lz77_parse_block": [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ],
+            "lz77_pack_tokens": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int64,
+            ],
+            "lz77_unpack_tokens": [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ],
+            "lz77_pack_tokens_phase": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int64,
+            ],
+            "lz77_dec_free": [ctypes.c_void_p],
+            "lz77_dec_total": [ctypes.c_void_p],
+            "lz77_dec_params": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ],
+            "lz77_dec_feed": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ],
+            "lz77_enc_free": [ctypes.c_void_p],
+            "lz77_enc_feed": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int64,
+            ],
+            "lz77_enc_finish": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ],
         }.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int64
+        lib.lz77_dec_new.argtypes = []
+        lib.lz77_dec_new.restype = ctypes.c_void_p
+        lib.lz77_dec_free.restype = None
+        lib.lz77_enc_new.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lz77_enc_new.restype = ctypes.c_void_p
+        lib.lz77_enc_free.restype = None
         _lib = lib
         return lib
 
@@ -89,6 +133,288 @@ def encode(
     if size < 0:
         raise RuntimeError(f"native encode failed: {size}")
     return out[:size].tobytes()
+
+
+def parse_block(
+    L: np.ndarray, valid: int, entry: int
+) -> tuple[np.ndarray, int]:
+    """Serial greedy-parse walk in C: (token starts, exit position)."""
+    lib = load()
+    Lc = np.ascontiguousarray(L, dtype=np.uint8)
+    starts = np.empty(max(valid, 1), np.int32)
+    exit_pos = ctypes.c_int64(0)
+    c = lib.lz77_parse_block(
+        Lc.ctypes.data, valid, entry, starts.ctypes.data,
+        ctypes.byref(exit_pos),
+    )
+    return starts[:c], int(exit_pos.value)
+
+
+def pack_tokens(
+    off: np.ndarray, length: np.ndarray, nxt: np.ndarray, params: spec.Params
+) -> tuple[np.ndarray, int]:
+    """Pack tokens to payload bytes in C: (bytes, payload_bits)."""
+    lib = load()
+    T = off.shape[0]
+    offc = np.ascontiguousarray(off, dtype=np.int32)
+    lenc = np.ascontiguousarray(length, dtype=np.uint8)
+    nxtc = np.ascontiguousarray(nxt, dtype=np.uint8)
+    cap = (T * params.width + 7) // 8 + 8
+    out = np.empty(cap, np.uint8)
+    bits = lib.lz77_pack_tokens(
+        offc.ctypes.data, lenc.ctypes.data, nxtc.ctypes.data, T,
+        params.la, params.sb, out.ctypes.data, cap,
+    )
+    if bits < 0:
+        raise RuntimeError(f"native pack failed: {bits}")
+    return out[: (bits + 7) // 8], int(bits)
+
+
+def pack_tokens_phase(
+    off: np.ndarray, length: np.ndarray, nxt: np.ndarray,
+    params: spec.Params, phase: int,
+) -> tuple[np.ndarray, int]:
+    """Pack tokens starting at bit phase ``phase`` in [0, 8).
+
+    Returns (bytes, payload_bits).  The first byte carries only bits >=
+    phase (low bits zero) so the caller OR-merges it into its trailing
+    partial byte — the native bit writer for non-byte-aligned widths
+    across block boundaries (bitio.c:203-236's job, block-at-a-time).
+    """
+    lib = load()
+    T = off.shape[0]
+    offc = np.ascontiguousarray(off, dtype=np.int32)
+    lenc = np.ascontiguousarray(length, dtype=np.uint8)
+    nxtc = np.ascontiguousarray(nxt, dtype=np.uint8)
+    cap = (phase + T * params.width + 7) // 8 + 8
+    out = np.zeros(cap, np.uint8)
+    bits = lib.lz77_pack_tokens_phase(
+        offc.ctypes.data, lenc.ctypes.data, nxtc.ctypes.data, T,
+        params.la, params.sb, phase, out.ctypes.data, cap,
+    )
+    if bits < 0:
+        raise RuntimeError(f"native phase pack failed: {bits}")
+    return out[: (phase + bits + 7) // 8], int(bits)
+
+
+def unpack_tokens(
+    payload: np.ndarray, params: spec.Params
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Unpack all whole tokens from payload bytes in C."""
+    lib = load()
+    nbytes = payload.shape[0]
+    tmax = spec.token_count(nbytes, params.width) + 1
+    off = np.empty(tmax, np.int32)
+    length = np.empty(tmax, np.uint8)
+    nxt = np.empty(tmax, np.uint8)
+    pc = np.ascontiguousarray(payload, dtype=np.uint8)
+    c = lib.lz77_unpack_tokens(
+        pc.ctypes.data, nbytes, params.la, params.sb,
+        off.ctypes.data, length.ctypes.data, nxt.ctypes.data,
+    )
+    if c < 0:
+        raise RuntimeError(f"native unpack failed: {c}")
+    return off[:c], length[:c], nxt[:c]
+
+
+class DecodeStream:
+    """Resumable bounded-memory decoder (window tail + bit carry in C).
+
+    The reference decodes file-to-file in O(window) memory (lz77.c:148-197,
+    bitio.c:103-121); this is the same capability as an incremental state
+    machine: ``feed`` arbitrary input chunks, receive decoded byte chunks.
+    Bytes out are identical to the whole-stream decoders for every stream.
+    """
+
+    def __init__(self, out_chunk: int = 4 << 20):
+        if out_chunk < 256:
+            raise ValueError("out_chunk must be >= 256 (one max-size token)")
+        self._lib = load()
+        self._st = self._lib.lz77_dec_new()
+        self._out = np.empty(out_chunk, np.uint8)
+
+    def __enter__(self) -> "DecodeStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._st is not None:
+            self._lib.lz77_dec_free(self._st)
+            self._st = None
+
+    def __del__(self):  # pragma: no cover - GC safety net
+        self.close()
+
+    @property
+    def total_out(self) -> int:
+        return int(self._lib.lz77_dec_total(self._st))
+
+    def params(self) -> spec.Params | None:
+        """Stream parameters once the 4-byte header has been fed."""
+        sb = ctypes.c_int32(0)
+        la = ctypes.c_int32(0)
+        if self._lib.lz77_dec_params(
+            self._st, ctypes.byref(sb), ctypes.byref(la)
+        ) != 0:
+            return None
+        return spec.Params(la=la.value, sb=sb.value)
+
+    def feed(self, data: bytes | np.ndarray):
+        """Decode one input chunk; yields decoded byte chunks (np.uint8).
+
+        Every whole token in (carry + data) is decoded; trailing sub-token
+        bits stay in the carry for the next feed (the EOF padding rule,
+        lz77.c:266-280 — they are never a token since width > 7).
+
+        Each yielded array is a VIEW into the stream's reusable output
+        buffer, valid only until the next iteration — consume it (write,
+        ``.tobytes()``, copy) before advancing the generator.
+        """
+        src = np.frombuffer(data, np.uint8) if isinstance(
+            data, (bytes, bytearray, memoryview)
+        ) else np.ascontiguousarray(data, np.uint8)
+        n = src.shape[0]
+        in_ptr = src.ctypes.data if n else 0
+        consumed = ctypes.c_int64(0)
+        done = 0
+        while True:
+            produced = self._lib.lz77_dec_feed(
+                self._st, in_ptr + done, n - done,
+                ctypes.byref(consumed), self._out.ctypes.data,
+                self._out.shape[0],
+            )
+            if produced < 0:
+                raise RuntimeError(f"corrupt stream: {produced}")
+            done += consumed.value
+            if produced:
+                yield self._out[:produced]
+            elif done >= n:
+                return
+            elif consumed.value == 0:  # cannot happen with out_chunk >= 256
+                raise RuntimeError("decoder stalled: no progress")
+
+
+def decode_file(
+    in_path: str,
+    out_path: str,
+    *,
+    read_chunk: int = 8 << 20,
+    out_chunk: int = 4 << 20,
+) -> int:
+    """File-to-file decode in O(window) memory; returns decoded size.
+
+    The framework's answer to lz77.c:148-197: arbitrarily large streams
+    decode at flat RSS (window tail + two fixed chunks), self-verified —
+    no whole-stream or whole-output materialization anywhere.
+    """
+    total = 0
+    with DecodeStream(out_chunk=out_chunk) as ds, \
+            open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+        while True:
+            chunk = fin.read(read_chunk)
+            if not chunk:
+                break
+            for piece in ds.feed(chunk):
+                fout.write(piece)
+                total += piece.shape[0]
+        if ds.params() is None and ds.total_out == 0:
+            raise ValueError("corrupt or truncated stream: no header")
+    return total
+
+
+class EncodeStream:
+    """Resumable bounded-memory encoder (window + hash chains + bit carry
+    in C).  The reference encodes file-to-file in O(window) memory
+    (lz77.c:51-140, bitio.c:80-101); this is the same capability as an
+    incremental state machine — and the emitted stream is byte-identical
+    to the in-memory encoders for every input (the greedy parse is gated
+    on a fully-known lookahead before each token)."""
+
+    def __init__(self, params: spec.Params | None = None):
+        params = params or spec.Params()
+        self._lib = load()
+        self._params = params
+        self._st = self._lib.lz77_enc_new(params.la, params.sb)
+        if not self._st:
+            raise ValueError("invalid parameters")
+        self._out = np.empty(0, np.uint8)
+
+    def __enter__(self) -> "EncodeStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._st is not None:
+            self._lib.lz77_enc_free(self._st)
+            self._st = None
+
+    def __del__(self):  # pragma: no cover - GC safety net
+        self.close()
+
+    def _room(self, n: int) -> None:
+        cap = self._lib.lz77_encode_bound(n, self._params.la, self._params.sb)
+        if self._out.shape[0] < cap:
+            self._out = np.empty(cap, np.uint8)
+
+    def feed(self, data: bytes | np.ndarray) -> np.ndarray:
+        """Encode one input chunk; returns the stream bytes produced so far
+        as a VIEW into a reusable buffer (consume before the next call)."""
+        src = np.frombuffer(data, np.uint8) if isinstance(
+            data, (bytes, bytearray, memoryview)
+        ) else np.ascontiguousarray(data, np.uint8)
+        n = src.shape[0]
+        self._room(n)
+        produced = self._lib.lz77_enc_feed(
+            self._st, src.ctypes.data if n else 0, n,
+            self._out.ctypes.data, self._out.shape[0],
+        )
+        if produced < 0:
+            raise RuntimeError(f"native encode failed: {produced}")
+        return self._out[:produced]
+
+    def finish(self) -> np.ndarray:
+        """Flush the tail tokens + final partial byte; same view contract."""
+        self._room(2 * (self._params.la + 1))
+        produced = self._lib.lz77_enc_finish(
+            self._st, self._out.ctypes.data, self._out.shape[0]
+        )
+        if produced < 0:
+            raise RuntimeError(f"native encode flush failed: {produced}")
+        return self._out[:produced]
+
+
+def encode_file(
+    in_path: str,
+    out_path: str,
+    params: spec.Params | None = None,
+    *,
+    read_chunk: int = 8 << 20,
+) -> tuple[int, int]:
+    """File-to-file encode in O(window) memory; returns (in, out) sizes.
+
+    The framework's answer to lz77.c:51-140 on the no-accelerator path:
+    arbitrarily large inputs encode at flat RSS, stream byte-identical to
+    encode()'s."""
+    n_in = 0
+    n_out = 0
+    with EncodeStream(params) as es, \
+            open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+        while True:
+            chunk = fin.read(read_chunk)
+            if not chunk:
+                break
+            n_in += len(chunk)
+            piece = es.feed(chunk)
+            fout.write(piece)
+            n_out += piece.shape[0]
+        piece = es.finish()
+        fout.write(piece)
+        n_out += piece.shape[0]
+    return n_in, n_out
 
 
 def decode(stream: bytes) -> bytes:

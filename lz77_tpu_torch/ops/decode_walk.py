@@ -31,6 +31,20 @@ what this stream's deepest chain needs (a flag lets the rest return at
 once) and the pointers to 32 bits.  A first design — one warp replaying
 the tokens in order, lanes sharing one copy — was right but took a round
 trip to L2 per copy token; its time stands in PERF.md.
+
+Packed variant — ``csrc/decode_walk_packed.cu`` replaces the TPU kernel
+``lz77_tpu/ops/decode_walk.py::_kernel_packed``: the same replay with four
+decoded bytes per int32 ring word, word-wide copies through a funnel shift,
+packed int32 output and no priming.  That kernel is the serial replay at
+word granularity and the port keeps it serial, because that is what it
+computes: one thread block, the ring in shared memory (``2^(off_bits+1)``
+bytes, at least 8 KiB, 128 KiB at sb=65535), one warp replaying the tokens
+in order with up to ``off/4`` lanes copying words at once, the whole block
+writing finished ring words out.  It is bound by the latency of its serial
+chain, far from its contract's bytes; what it has that the parallel kernel
+lacks is memory (no 4-byte pointer per output byte).  The parallel kernel
+stays the decode backend; this one is reached through
+:func:`decode_tokens_walk_packed`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -172,6 +186,23 @@ def walk_decode(
 walk_decode.launches = 0
 
 
+def _checked_token_words(off, ln, nxt, off_bits: int, dev):
+    """Validate a full token list on the host -> (decode words on ``dev``,
+    output length).  A match that reaches before the output start, or has
+    ``off == 0``, raises before anything is launched."""
+    if off_bits > 16:
+        raise ValueError(
+            f"decode token words hold 16 offset bits, got off_bits={off_bits}"
+        )
+    sz = ln.astype(np.int64) + 1
+    starts = np.cumsum(sz) - sz
+    out_len = int(starts[-1] + sz[-1])
+    o64 = off.astype(np.int64)
+    if ((ln > 0) & ((o64 == 0) | (o64 > starts))).any():
+        raise ValueError("corrupt stream: match reaches before output start")
+    return torch.from_numpy(pack_token_words(off, ln, nxt)).to(dev), out_len
+
+
 def decode_tokens_walk(
     off: np.ndarray,
     ln: np.ndarray,
@@ -182,22 +213,92 @@ def decode_tokens_walk(
 ) -> bytes:
     """Decode a full token list on the device via the walk kernel."""
     dev = device_lib.resolve(device)
-    if off_bits > 16:
-        raise ValueError(
-            f"decode token words hold 16 offset bits, got off_bits={off_bits}"
-        )
     T = int(off.shape[0])
     if T == 0:
         return b""
-    sz = ln.astype(np.int64) + 1
-    starts = np.cumsum(sz) - sz
-    out_len = int(starts[-1] + sz[-1])
-    o64 = off.astype(np.int64)
-    if ((ln > 0) & ((o64 == 0) | (o64 > starts))).any():
-        raise ValueError("corrupt stream: match reaches before output start")
-    toks = torch.from_numpy(pack_token_words(off, ln, nxt)).to(dev)
+    toks, out_len = _checked_token_words(off, ln, nxt, off_bits, dev)
     out, cnt = walk_decode(toks, T, out_cap=out_len)
     n = int(cnt)
     if n != out_len:
         raise RuntimeError(f"walk decode wrote {n} bytes, expected {out_len}")
     return out.cpu().numpy().tobytes()
+
+
+def walk_decode_packed_plain(
+    toks: torch.Tensor, total: int, *, out_cap_words: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the packed replay: the pointer-doubling
+    replay of :func:`walk_decode_plain`, zero-padded to whole words and
+    viewed as little-endian int32."""
+    out, cnt = walk_decode_plain(toks, total, out_cap=4 * out_cap_words)
+    return out.contiguous().view(torch.int32), cnt
+
+
+def walk_decode_packed(
+    toks: torch.Tensor,   # (>= total,) int32 decode words
+    total: int,           # real token count T
+    *,
+    off_bits: int,
+    out_cap_words: int,   # >= ceil((sum(len) + T) / 4)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 wrapper: replay tokens -> (packed_words, out_len_bytes).
+
+    ``packed_words`` is (out_cap_words,) int32 holding the decoded bytes
+    four to a word, little endian, zero past the count; ``out_len_bytes``
+    a (1,) int32 tensor.  No priming window.  CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version.
+    ``walk_decode_packed.launches`` counts launches.
+    """
+    if toks.dtype != torch.int32 or toks.dim() != 1 \
+            or not toks.is_contiguous():
+        raise ValueError("toks must be a contiguous 1-D int32 tensor")
+    if not 0 <= total <= toks.shape[0]:
+        raise ValueError(f"total {total} outside [0, {toks.shape[0]}]")
+    if not 1 <= off_bits <= 16:
+        raise ValueError(f"off_bits {off_bits} outside [1, 16]")
+    if not 0 <= out_cap_words < (1 << 29):
+        raise ValueError(f"out_cap_words {out_cap_words} outside [0, 2^29)")
+    if not toks.is_cuda:
+        return walk_decode_packed_plain(toks, total,
+                                        out_cap_words=out_cap_words)
+    lib = _build.kernels()
+    dev = toks.device
+    out = torch.zeros(out_cap_words, dtype=torch.int32, device=dev)
+    cnt = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lz77_walk_decode_packed(
+            toks.data_ptr(), total, out.data_ptr(), out_cap_words,
+            cnt.data_ptr(), off_bits,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "decode_packed_kernel")
+    walk_decode_packed.launches += 1
+    return out, cnt
+
+
+walk_decode_packed.launches = 0
+
+
+def decode_tokens_walk_packed(
+    off: np.ndarray,
+    ln: np.ndarray,
+    nxt: np.ndarray,
+    *,
+    off_bits: int,
+    device: str | torch.device | None = None,
+) -> bytes:
+    """Decode a full token list on the device via the packed-word kernel."""
+    dev = device_lib.resolve(device)
+    T = int(off.shape[0])
+    if T == 0:
+        return b""
+    toks, out_len = _checked_token_words(off, ln, nxt, off_bits, dev)
+    out, cnt = walk_decode_packed(
+        toks, T, off_bits=off_bits, out_cap_words=-(-out_len // 4)
+    )
+    n = int(cnt)
+    if n != out_len:
+        raise RuntimeError(
+            f"packed walk decode wrote {n} bytes, expected {out_len}"
+        )
+    return out.cpu().numpy().view(np.uint8)[:n].tobytes()

@@ -90,6 +90,30 @@ def match_sweep_plain(
     return best_l, best_o
 
 
+def check_batch(blocks, halos, rights, avails, valid_exts, dlim: int,
+                depth: int) -> None:
+    """Raise ``ValueError`` unless the batch has the matcher contract's
+    shapes and types (shared by both kernel wrappers)."""
+    G = blocks.shape[0]
+    if halos.shape != (G, dlim) or rights.shape != (G, depth):
+        raise ValueError(
+            f"matcher needs halos (G, {dlim}) and rights (G, {depth}), got "
+            f"{tuple(halos.shape)} and {tuple(rights.shape)}"
+        )
+    if avails.shape != (G,) or valid_exts.shape != (G,):
+        raise ValueError("avails and valid_exts must be (G,)")
+    for t, dt in ((blocks, torch.uint8), (halos, torch.uint8),
+                  (rights, torch.uint8), (avails, torch.int32),
+                  (valid_exts, torch.int32)):
+        if t.dtype != dt or t.device != blocks.device or not t.is_contiguous():
+            raise ValueError(
+                "matcher inputs must be contiguous uint8 bytes / int32 "
+                "scalars on one device"
+            )
+    if blocks.is_cuda and G > 65535:
+        raise ValueError("a match kernel takes at most 65535 blocks per batch")
+
+
 def match_sweep(
     blocks: torch.Tensor,      # (G, B) uint8
     halos: torch.Tensor,       # (G, d_limit) uint8
@@ -108,21 +132,7 @@ def match_sweep(
     depth = spec.len_limit(la)
     dlim = spec.d_limit(sb)
     G, B = blocks.shape
-    if halos.shape != (G, dlim) or rights.shape != (G, depth):
-        raise ValueError(
-            f"matcher needs halos (G, {dlim}) and rights (G, {depth}), got "
-            f"{tuple(halos.shape)} and {tuple(rights.shape)}"
-        )
-    if avails.shape != (G,) or valid_exts.shape != (G,):
-        raise ValueError("avails and valid_exts must be (G,)")
-    for t, dt in ((blocks, torch.uint8), (halos, torch.uint8),
-                  (rights, torch.uint8), (avails, torch.int32),
-                  (valid_exts, torch.int32)):
-        if t.dtype != dt or t.device != blocks.device or not t.is_contiguous():
-            raise ValueError(
-                "matcher inputs must be contiguous uint8 bytes / int32 "
-                "scalars on one device"
-            )
+    check_batch(blocks, halos, rights, avails, valid_exts, dlim, depth)
     if dlim == 0 or depth == 0 or G * B == 0:
         z = torch.zeros((G, B), dtype=torch.int32, device=blocks.device)
         return z, z.clone()
@@ -130,8 +140,6 @@ def match_sweep(
         return match_sweep_plain(
             blocks, halos, rights, avails, valid_exts, la=la, sb=sb
         )
-    if G > 65535:
-        raise ValueError("match_kernel takes at most 65535 blocks per batch")
     lib = _build.kernels()
     L = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
     O = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
@@ -149,6 +157,36 @@ def match_sweep(
 
 match_sweep.launches = 0
 
+# Matchers by name.  ``sweep`` is K1 above and ``chunk`` is K4
+# (``ops.match_chunk``); the JAX package's names for the two TPU kernels they
+# replace are aliases, so a command line written for its CLI runs unchanged.
+# Its other names are XLA formulations with no kernel and are not offered.
+DEFAULT_MATCHER = "sweep"
+MATCHER_ALIASES = {"pallas_bitplane": "sweep", "pallas": "chunk"}
+MATCHER_NAMES = ("sweep", "chunk")
+
+
+def route_matcher(name: str) -> str:
+    """Canonical matcher name (``sweep`` or ``chunk``) for ``name``; both
+    kernels cover every ``la``, so nothing else routes."""
+    name = MATCHER_ALIASES.get(name, name)
+    if name not in MATCHER_NAMES:
+        raise ValueError(
+            f"unknown matcher {name!r}; available: "
+            f"{sorted(MATCHER_NAMES + tuple(MATCHER_ALIASES))}"
+        )
+    return name
+
+
+def get_matcher(name: str):
+    """The batch wrapper ``fn(blocks, halos, rights, avails, valid_exts, *,
+    la, sb) -> (L, O)`` behind a matcher name."""
+    if route_matcher(name) == "chunk":
+        from . import match_chunk  # deferred: match_chunk imports this module
+
+        return match_chunk.match_chunk
+    return match_sweep
+
 
 def find_matches(
     block,
@@ -160,6 +198,7 @@ def find_matches(
     la: int,
     sb: int,
     device: str | torch.device | None = None,
+    matcher: str = DEFAULT_MATCHER,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """True longest match per position.
 
@@ -173,6 +212,7 @@ def find_matches(
         block[0] (includes the right extension; may exceed B).
       la, sb: codec parameters.
       device: where to run; ``None`` is the GPU (see ``device.resolve``).
+      matcher: which kernel, by name (see :func:`get_matcher`).
 
     Returns:
       (L, O): int32, shaped like ``block``.  L[p] in [0, la-1], capped at
@@ -189,7 +229,7 @@ def find_matches(
         t = torch.as_tensor(a).to(device=dev, dtype=dtype)
         return (t[None] if single else t).contiguous()
 
-    L, O = match_sweep(
+    L, O = get_matcher(matcher)(
         prep(blk, torch.uint8), prep(halo, torch.uint8),
         prep(right, torch.uint8), prep(avail, torch.int32),
         prep(valid_ext, torch.int32), la=la, sb=sb,

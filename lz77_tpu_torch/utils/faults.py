@@ -2,7 +2,9 @@
 
 The reference silently truncates on mid-stream I/O errors (lz77.c:79-82,
 124-127; bitio.c:87-88).  Batches are independent up to a scalar entry
-carry, so a failed device batch is simply retried.
+carry, so a failed device batch is simply retried; a fault injector lets
+tests and the smoke script exercise the retry and resume paths
+deterministically.
 """
 
 from __future__ import annotations
@@ -11,6 +13,25 @@ import logging
 import time
 
 log = logging.getLogger("lz77_tpu_torch")
+
+
+class FaultInjector:
+    """Deterministic fault source: fail batch indices n times."""
+
+    def __init__(self, fail_batches: dict[int, int] | None = None):
+        # {batch_index: number_of_times_to_fail}
+        self.fail_batches = dict(fail_batches or {})
+        self.calls: list[int] = []
+
+    def check(self, batch_index: int) -> None:
+        self.calls.append(batch_index)
+        remaining = self.fail_batches.get(batch_index, 0)
+        if remaining > 0:
+            self.fail_batches[batch_index] = remaining - 1
+            raise RuntimeError(
+                f"injected fault on batch {batch_index} "
+                f"({remaining - 1} more)"
+            )
 
 
 def with_retries(fn, *args, retries: int = 2, backoff_s: float = 0.0,

@@ -1,0 +1,156 @@
+"""Port chunk matcher (lz77_tpu_torch.ops.match_chunk, K4) against the JAX
+package's matchers.
+
+The same numpy inputs, made from a seed, go through the JAX functions
+(``find_matches_brute``; once through the Pallas kernel the port's kernel
+replaces, in interpret mode) and the port's ``match_chunk`` on the CPU, so
+through the kernel's plain PyTorch version.  Tolerance 0: both tables are
+integers.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lz77_tpu import spec
+from lz77_tpu.ops import match as jax_match
+from lz77_tpu.ops import pallas_match
+from lz77_tpu_torch.ops import match as torch_match
+from lz77_tpu_torch.ops import match_chunk
+
+from conftest import make_text
+
+torch.set_num_threads(1)
+
+
+def _args(x: np.ndarray, p: spec.Params, avail: int, valid_ext: int):
+    return (x, np.zeros(p.d_limit, np.uint8), np.zeros(p.len_limit, np.uint8),
+            np.int32(avail), np.int32(valid_ext))
+
+
+def _port(args, la, sb):
+    L, O = torch_match.find_matches(
+        *args, la=la, sb=sb, device="cpu", matcher="chunk"
+    )
+    assert L.dtype == O.dtype == torch.int32
+    return L.numpy(), O.numpy()
+
+
+def _jax(find, args, la, sb, **kw):
+    L, O = find(*(jnp.asarray(a) for a in args), la=la, sb=sb, **kw)
+    return np.asarray(L), np.asarray(O)
+
+
+@pytest.mark.parametrize(
+    "la,sb", [(15, 4095), (8, 500), (4, 129), (255, 255), (15, 65535),
+              (255, 65535), (2, 3)],
+)
+def test_chunk_matches_brute(la, sb, rng):
+    """The parameter sets of the Pallas kernel's own test, plus the deepest
+    la and the widest window (beyond the TPU kernel's la <= 128)."""
+    p = spec.Params(la=la, sb=sb)
+    B = 2048
+    x = np.frombuffer(make_text(rng, B), np.uint8)
+    args = _args(x, p, 0, B)
+    # the JAX brute sweep takes d_limit sequential steps: its chunked
+    # matcher (same contract) stands in at the widest window
+    find = (jax_match.find_matches_chunked if sb == 65535
+            else jax_match.find_matches_brute)
+    ref = _jax(jax.jit(find, static_argnames=("la", "sb")), args, la, sb)
+    got = _port(args, la, sb)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_chunk_matches_the_pallas_kernel_it_replaces(rng):
+    """The TPU kernel itself, in interpret mode, at B=2048 tile=1024."""
+    la, sb = 4, 129
+    p = spec.Params(la=la, sb=sb)
+    x = np.frombuffer(make_text(rng, 2048), np.uint8)
+    args = _args(x, p, 0, 2048)
+    ref = _jax(pallas_match.find_matches_pallas, args, la, sb, tile=1024,
+               interpret=True)
+    got = _port(args, la, sb)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_chunk_with_halo_and_shrinkage(rng):
+    p = spec.Params()
+    B = 1024
+    data = np.frombuffer(make_text(rng, B + p.d_limit), np.uint8)
+    halo, x = data[: p.d_limit], data[p.d_limit :]
+    valid = B - 100  # partial final block: lookahead shrinkage at the end
+    xb = x.copy()
+    xb[valid:] = 0
+    args = (xb, halo.copy(), np.zeros(p.len_limit, np.uint8),
+            np.int32(p.d_limit), np.int32(valid))
+    ref = _jax(jax.jit(jax_match.find_matches_brute,
+                       static_argnames=("la", "sb")), args, 15, 4095)
+    got = _port(args, 15, 4095)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_chunk_equals_sweep_on_a_batch(rng):
+    """K4's plain version against K1's on a (G, B) batch whose B is no
+    multiple of anything: mid-stream halos, right extensions, a short tail."""
+    from lz77_tpu_torch.models import codec
+
+    p = spec.Params(la=17, sb=300)
+    x = np.frombuffer(
+        make_text(rng, 2000) + bytes(rng.integers(0, 3, 901, dtype=np.uint8)),
+        np.uint8,
+    )
+    B = 701
+    arrs = codec._batch_inputs(x, x.shape[0], 1, 4, 4, B, p.d_limit,
+                               p.len_limit)
+    t = [torch.from_numpy(a) for a in arrs]
+    L4, O4 = match_chunk.match_chunk(*t, la=p.la, sb=p.sb)
+    L1, O1 = torch_match.match_sweep(*t, la=p.la, sb=p.sb)
+    assert torch.equal(L4, L1) and torch.equal(O4, O1)
+    assert L4.shape == (4, B) and int(L4.max()) > 0
+    assert match_chunk.match_chunk.launches == 0  # CPU: the plain version
+
+
+def test_key_round_trip():
+    dlim = 4095
+    L = torch.tensor([0, 1, 14, 254, 3])
+    O = torch.tensor([0, 1, 4095, 77, 2])
+    key = torch.where(L > 0, match_chunk.combine_key(L, O, dlim), 0)
+    L2, O2 = match_chunk.split_key(key, dlim)
+    assert torch.equal(L2, L) and torch.equal(O2, O)
+    # a longer match wins; among equal lengths the smaller offset
+    assert key[2] > key[4] > key[1] and \
+        match_chunk.combine_key(L[4], 1, dlim) > key[4]
+
+
+def test_chunk_rejects_bad_halo():
+    """Like the TPU kernel, the halo must be d_limit long."""
+    with pytest.raises(ValueError, match="halos"):
+        torch_match.find_matches(
+            np.zeros(1024, np.uint8), np.zeros(10, np.uint8),
+            np.zeros(14, np.uint8), 0, 1024, la=15, sb=4095, device="cpu",
+            matcher="chunk",
+        )
+
+
+@pytest.mark.parametrize(
+    "name,want",
+    [("sweep", "match_sweep"), ("chunk", "match_chunk"),
+     ("pallas_bitplane", "match_sweep"), ("pallas", "match_chunk")],
+)
+def test_matcher_names_and_aliases(name, want):
+    assert torch_match.get_matcher(name).__name__ == want
+    assert torch_match.route_matcher(name) in ("sweep", "chunk")
+
+
+@pytest.mark.parametrize("name", ["brute", "sorted", "chunked", "bitplane",
+                                  "nope"])
+def test_xla_matcher_names_are_refused(name):
+    """The JAX package's XLA formulations have no kernel here; the error
+    names what the port has."""
+    with pytest.raises(ValueError, match="chunk.*sweep"):
+        torch_match.get_matcher(name)

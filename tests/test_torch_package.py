@@ -14,8 +14,8 @@ import torch
 import lz77_tpu
 import lz77_tpu_torch
 from lz77_tpu_torch import _build, convert, device
-from lz77_tpu_torch.models import fused
-from lz77_tpu_torch.ops import decode_walk, match, parse_walk
+from lz77_tpu_torch.models import codec, fused
+from lz77_tpu_torch.ops import decode_walk, match, match_chunk, parse_walk
 
 torch.set_num_threads(1)
 
@@ -34,11 +34,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         )
     ]
     assert {"lz77_tpu_torch.ops.match", "lz77_tpu_torch.models.fused",
-            "lz77_tpu_torch.convert", "lz77_tpu_torch.native"} <= set(names)
+            "lz77_tpu_torch.convert", "lz77_tpu_torch.native",
+            "lz77_tpu_torch.cli", "lz77_tpu_torch.ops.match_chunk",
+            "lz77_tpu_torch.models.encoder", "lz77_tpu_torch.utils.manifest",
+            "lz77_tpu_torch.utils.profiling"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
+        "from lz77_tpu_torch import cli\n"
+        "assert cli.main(['-h']) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'lz77_tpu'))\n"
         "assert not bad, bad\n"
@@ -76,19 +81,51 @@ def test_default_device_raises_without_a_card():
         lambda: decode_walk.decode_tokens_walk(
             np.array([0]), np.array([0]), np.array([65]), off_bits=12,
             device="cuda"),
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, matcher="chunk"),
+        lambda: codec.encode_bytes(b"abc", pipeline="host"),
+        lambda: list(codec.iter_block_bits(
+            np.zeros(8, np.uint8), lz77_tpu_torch.Params())),
+        lambda: decode_walk.decode_tokens_walk_packed(
+            np.array([0]), np.array([0]), np.array([65]), off_bits=12),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
-         "decode_tokens_walk"],
+         "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
+         "iter_block_bits", "decode_tokens_walk_packed"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
-    before = (match.match_sweep.launches, parse_walk.walk_parse_pack.launches,
-              decode_walk.walk_decode.launches)
+    def counts():
+        return (match.match_sweep.launches,
+                parse_walk.walk_parse_pack.launches,
+                decode_walk.walk_decode.launches,
+                match_chunk.match_chunk.launches,
+                decode_walk.walk_decode_packed.launches)
+
+    before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
-    assert before == (match.match_sweep.launches,
-                      parse_walk.walk_parse_pack.launches,
-                      decode_walk.walk_decode.launches)
+    assert before == counts()
+
+
+def test_file_entry_points_raise_without_a_card(tmp_path):
+    _no_card()
+    ip = tmp_path / "in"
+    ip.write_bytes(b"file entry points run on the card " * 9)
+    sp = tmp_path / "s.lz"
+    sp.write_bytes(lz77_tpu.compress(ip.read_bytes(), backend="numpy"))
+    for pipeline in ("host", "fused"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lz77_tpu_torch.compress_file(str(ip), str(tmp_path / "o"),
+                                         pipeline=pipeline)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lz77_tpu_torch.decompress_file(str(sp), str(tmp_path / "o"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        codec.decode_file_device(str(sp), str(tmp_path / "o"))
+    # the host backends need no card
+    assert lz77_tpu_torch.decompress_file(
+        str(sp), str(tmp_path / "o"), backend="native") == ip.stat().st_size
 
 
 def test_kernel_build_raises_without_nvcc():
@@ -107,6 +144,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
     assert match.match_sweep.launches == 0
     assert parse_walk.walk_parse_pack.launches == 0
     assert decode_walk.walk_decode.launches == 0
+    s2 = lz77_tpu_torch.compress(data, device="cpu", pipeline="host",
+                                 matcher="chunk")
+    assert s2 == s
+    assert match_chunk.match_chunk.launches == 0
 
 
 def test_convert_params_and_batch():
