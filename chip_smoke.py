@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives two paths, each once, with the kernels'
+shape, times both, and then drives three paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -21,7 +21,14 @@ launch counts set to 0 just before and read just after:
   streamed device decode, an unaligned token width (``-l 8 -s 500``) on
   8 MiB, the fused pipeline on files, and the packed-word decode through
   its public function; every stream equal to the native encoder's and every
-  decoded file equal to its input.
+  decoded file equal to its input;
+* the merged path: ``encode_bytes_fused(parser="merged")`` of the same
+  input, one launch of the merged sweep+walk kernel a batch and none of the
+  match sweep or the walk parse; the stream equal to the native encoder's
+  and to the walk route's, and decoded back.
+
+The plain tensor modules (the scan parser, the chunked decoder) run on the
+card on the first 8 MiB and are held against the same references.
 
 Each phase prints one JSON line; any failed check raises and the exit code
 is non-zero.  Without a CUDA device it exits non-zero at once: nothing here
@@ -49,8 +56,9 @@ import torch
 
 import lz77_tpu_torch as lt
 from lz77_tpu_torch import _build, bitio, cli, native, spec
-from lz77_tpu_torch.models import codec
-from lz77_tpu_torch.ops import decode_walk, match, match_chunk, parse_walk
+from lz77_tpu_torch.models import codec, fused
+from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
+                                parse_walk)
 from lz77_tpu_torch.utils import faults, profiling
 
 HBM_BYTES_PER_S = 3.35e12
@@ -65,6 +73,7 @@ WRAPPERS = {
     "walk_decode_kernel": decode_walk.walk_decode,
     "match_chunk_kernel": match_chunk.match_chunk,
     "decode_packed_kernel": decode_walk.walk_decode_packed,
+    "sweepwalk_kernel": fused_walk.sweep_walk,
 }
 KERNEL_INFO = {
     "match_kernel": ("lz77_tpu_torch/csrc/match.cu",
@@ -77,11 +86,16 @@ KERNEL_INFO = {
                            "lz77_tpu/ops/pallas_match.py:53"),
     "decode_packed_kernel": ("lz77_tpu_torch/csrc/decode_walk_packed.cu",
                              "lz77_tpu/ops/decode_walk.py:316"),
+    "sweepwalk_kernel": ("lz77_tpu_torch/csrc/fused_walk.cu",
+                         "lz77_tpu/ops/fused_walk.py:62"),
 }
 # the kernels each driven path must launch at least once
 LIBRARY_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                         "walk_decode_kernel")
-CLI_PATH_KERNELS = tuple(WRAPPERS)
+CLI_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                    "walk_decode_kernel", "match_chunk_kernel",
+                    "decode_packed_kernel")
+MERGED_PATH_KERNELS = ("sweepwalk_kernel", "walk_decode_kernel")
 
 
 def emit(obj) -> None:
@@ -288,6 +302,60 @@ def check_decode_packed(name, stream: bytes, data: bytes, reps=0):
     return rec
 
 
+# ---------------------------------------------------------------- K5 -----
+
+def check_sweepwalk(name, x, g0, G, B, p, entry=0, cut=0, reps=0):
+    """The merged kernel vs its plain version and vs K1 + K2 on the card, on
+    one batch; ``cut`` takes bytes off ``valid_total`` (a ragged span)."""
+    args, vt = batch_on_card(x, g0, G, B, p)
+    vt -= cut
+    blocks, _, rights = args[:3]
+    N = blocks.numel()
+    e = torch.tensor([entry], dtype=torch.int32, device="cuda")
+    kw = dict(la=p.la, sb=p.sb)
+    wkw = dict(la=p.la, ob=p.off_bits, lb=p.len_bits)
+    tok, cnt, ex = fused_walk.sweep_walk(*args, e, vt, **kw)
+    tokp, cntp, exp = fused_walk.sweep_walk_plain(*args, e, vt, **kw)
+    L, O = match.match_sweep(*args, **kw)
+    lox = parse_walk.build_lox(
+        L.reshape(N), O.reshape(N), blocks.reshape(N), rights[-1], p.la)
+    tok2, cnt2, ex2 = parse_walk.walk_parse_pack(lox, e, vt, **wkw)
+    torch.cuda.synchronize()
+    c = int(cnt)
+    err = max(max_err(cnt, cntp), max_err(ex, exp), max_err(tok[:c], tokp[:c]))
+    err2 = max(max_err(cnt, cnt2), max_err(ex, ex2), max_err(tok[:c], tok2[:c]))
+    rec = {"kernel": "sweepwalk_kernel", "case": name, "la": p.la,
+           "sb": p.sb, "shape": [len(blocks), B], "valid_total": vt,
+           "entry": entry, "tokens": c, "exit": int(ex),
+           "max_abs_err": err, "max_abs_err_vs_match_plus_walk": err2}
+    if err != 0 or err2 != 0:
+        raise AssertionError(f"sweepwalk_kernel disagrees: {rec}")
+    if reps:
+        _, _, _, avails, vexts = args
+        pos = torch.arange(B, device="cuda", dtype=torch.int64)[None, :]
+        cap = torch.clamp(vexts[:, None] - pos - 1, max=p.len_limit)
+        dmax = torch.clamp(pos + avails[:, None], max=p.d_limit)
+        # the sweep's compares, counted as for K1 (positions below vt only)
+        swept = torch.where(cap > 0, torch.where(L == cap, O.to(torch.int64), dmax), 0)
+        ops = int(swept.reshape(-1)[:vt].sum())
+        nbytes = sum(t.numel() * t.element_size() for t in args) + 4 + c * 4 + 8
+
+        def walk_route():
+            Lw, Ow = match.match_sweep(*args, **kw)
+            lw = parse_walk.build_lox(Lw.reshape(N), Ow.reshape(N),
+                                      blocks.reshape(N), rights[-1], p.la)
+            return parse_walk.walk_parse_pack(lw, e, vt, **wkw)
+
+        rec.update(
+            ms=time_ms(lambda: fused_walk.sweep_walk(*args, e, vt, **kw), reps),
+            match_plus_walk_ms=time_ms(walk_route, reps),
+            bytes=nbytes, compares=ops,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_ms=ops / INT_OPS_PER_S * 1e3,
+        )
+    return rec, (args, e, vt)
+
+
 # ---------------------------------------------------------- CLI path -----
 
 def run_cli(argv, expect_rc=0):
@@ -450,12 +518,14 @@ def profile_summary(profile_dir: str, name: str):
 
 
 def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
-    """Both paths once more under the profiler: the library calls inside
+    """The paths once more under the profiler: the library calls inside
     ``profiling.trace``, three CLI calls under ``--profile DIR``."""
     with profiling.trace(os.path.join(pdir, "library_compress")):
         lt.compress(data)
     with profiling.trace(os.path.join(pdir, "library_decompress")):
         lt.decompress(stream)
+    with profiling.trace(os.path.join(pdir, "merged_encode")):
+        fused.encode_bytes_fused(data, parser="merged")
     inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out.lz")
     calls = {
         "cli_encode_host_chunk": ["-c", "-i", inp, "-o", out, "--pipeline",
@@ -469,7 +539,8 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
     for name, argv in calls.items():
         run_cli(argv + ["--profile", os.path.join(pdir, name)])
     return [profile_summary(pdir, name) for name in
-            ("library_compress", "library_decompress", *calls)]
+            ("library_compress", "library_decompress", "merged_encode",
+             *calls)]
 
 
 def main() -> int:
@@ -478,7 +549,7 @@ def main() -> int:
     ap.add_argument("--text-mib", type=int, default=32,
                     help="MiB of text in the main-path input (>= 8)")
     ap.add_argument("--profile", action="store_true",
-                    help="also print both paths' device time by kernel "
+                    help="also print the paths' device time by kernel "
                          "(the CLI calls run under --profile DIR)")
     ap.add_argument("--profile-dir", default=os.path.join("build", "profile"),
                     help="where --profile lets the CLI calls write their "
@@ -547,6 +618,33 @@ def main() -> int:
                          spec.Params(255, 65535), kernel="match_chunk_kernel")
     checks.append(rec)
 
+    # K5 small, against its plain version and against K1 + K2 on the card:
+    # the matchers' cases, blocks that are no multiple of the tile, blocks
+    # shorter than la (tiles jumped over whole), a ragged valid_total with a
+    # nonzero entry, far offsets, zeros and random bytes, every entry
+    for name, xs, g0, G5, B5, p, entry, cut in (
+        ("default", small, 0, 3, 1800, p0, 0, 0),
+        ("la255_sb255", small, 0, 3, 1800, spec.Params(255, 255), 0, 0),
+        ("la129_sb65535", small, 0, 3, 1800, spec.Params(129, 65535), 0, 0),
+        ("la255_sb65535", small, 0, 2, 2500, spec.Params(255, 65535), 7, 0),
+        ("la4_sb4096", small, 0, 3, 1800, spec.Params(4, 4096), 3, 0),
+        ("la2_sb3", small, 0, 3, 701, spec.Params(2, 3), 1, 0),
+        ("ragged", small, 0, 8, 701, p0, 3, 0),
+        ("ragged_cut", small, 0, 3, 701, p0, 3, 679),
+        ("second_batch", small, 3, 3, 701, p0, 5, 0),
+        ("short_blocks", small, 0, 9, 100, spec.Params(255, 255), 200, 0),
+        ("one_byte_blocks", small, 2, 40, 1, p0, 0, 0),
+        ("far_offsets", far, 1, 2, 30000, spec.Params(129, 65535), 0, 0),
+        ("zeros", np.zeros(5000, np.uint8), 0, 3, 1800, p0, 0, 0),
+        ("random", rng.integers(0, 256, 5000, dtype=np.uint8), 0, 3, 1800,
+         p0, 0, 0),
+    ):
+        rec, _ = check_sweepwalk(name, xs, g0, G5, B5, p, entry, cut)
+        checks.append(rec)
+    for entry in range(p0.la):
+        rec, _ = check_sweepwalk("every_entry", small, 1, 3, 701, p0, entry)
+        checks.append(rec)
+
     # K3 small: text, off=1/2/3 runs, widest window, priming window
     for name, d, p in (
         ("text", make_text(rng, 50000).tobytes(), p0),
@@ -586,10 +684,24 @@ def main() -> int:
     del args, L, O
     rec4, _ = check_match("main_path_batch", x, G, G, B, p0, reps=5,
                           kernel="match_chunk_kernel")
+    # K5 on the same text batch, then its time alone on a batch of zeros
+    # (the sweep exits at distance 1: the hand-off chain is what is left)
+    # and on a batch of random bytes (no early exit, a token a byte)
+    rec5, (args, e5, vt5) = check_sweepwalk(
+        "main_path_batch", x, G, G, B, p0, reps=5)
+    rec5["plain_ms"] = time_ms(lambda: fused_walk.sweep_walk_plain(
+        *args, e5, vt5, la=p0.la, sb=p0.sb), 1)
+    del args
+    for name, xs in (("zeros", np.zeros(G * B, np.uint8)),
+                     ("random", rng.integers(0, 256, G * B, dtype=np.uint8))):
+        r, _ = check_sweepwalk(f"main_shape_{name}", xs, 0, G, B, p0, reps=5)
+        rec5[f"{name}_ms"] = r["ms"]
+        rec5[f"{name}_match_plus_walk_ms"] = r["match_plus_walk_ms"]
+        rec5[f"{name}_tokens"] = r["tokens"]
     ref_stream = native.encode(data, p0)
     rec3 = check_decode("main_path_stream", ref_stream, data, reps=3)
     rec6 = check_decode_packed("main_path_stream", ref_stream, data, reps=1)
-    checks += [rec1, rec2, rec3, rec4, rec6]
+    checks += [rec1, rec2, rec3, rec4, rec5, rec6]
     emit({"kernel_checks": checks, "tolerance": 0})
 
     def reset_counts():
@@ -637,6 +749,67 @@ def main() -> int:
         "roundtrip": True, "native_decode": True,
     }})
 
+    # ---- the merged path, once: one kernel a batch, no sweep, no walk ----
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stm = codec.EncodeStats()
+    t0 = time.perf_counter()
+    merged = fused.encode_bytes_fused(data, p0, parser="merged", stats=stm)
+    torch.cuda.synchronize()
+    menc_s = time.perf_counter() - t0
+    mback = lt.decompress(merged)
+    m_launches = read_counts(MERGED_PATH_KERNELS, "the merged path")
+    if (m_launches["sweepwalk_kernel"] != batches
+            or m_launches["match_kernel"]
+            or m_launches["walk_parse_pack_kernel"]):
+        raise AssertionError(f"merged path launched {m_launches}")
+    if merged != ref_stream or merged != stream:
+        raise AssertionError("merged stream differs from native / walk route")
+    if mback != data:
+        raise AssertionError("decompress(merged stream) != x")
+    # both routes in turns, on this card, for the comparison
+    turns = {"walk": [], "merged": []}
+    for parser in ("walk", "merged", "merged", "walk"):
+        t0 = time.perf_counter()
+        fused.encode_bytes_fused(data, p0, parser=parser)
+        torch.cuda.synchronize()
+        turns[parser].append(time.perf_counter() - t0)
+    emit({"merged_path": {
+        "la": p0.la, "sb": p0.sb, "input_bytes": len(data),
+        "tokens": stm.tokens, "batches": batches, "encode_s": menc_s,
+        "encode_MB_s": len(data) / menc_s / 1e6,
+        "walk_route_encode_MB_s": len(data) / enc_s / 1e6,
+        "in_turns_s": turns, "phases": stm.phases.as_dict(),
+        "h2d_bytes": stm.h2d_bytes, "d2h_bytes": stm.d2h_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": m_launches, "stream_equals_native": True,
+        "stream_equals_walk_route": True, "roundtrip": True,
+    }})
+
+    # ---- the plain tensor modules on the card, first 8 MiB ---------------
+    head = data[: 8 << 20]
+    head_ref = native.encode(head, p0)
+    t0 = time.perf_counter()
+    scan = fused.encode_bytes_fused(head, p0, parser="scan")
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    if scan != head_ref or scan != fused.encode_bytes_fused(head, p0):
+        raise AssertionError("scan parser stream differs")
+    t0 = time.perf_counter()
+    chunked = codec.decode_bytes(head_ref, backend="device-chunked")
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    if chunked != head or chunked != lt.decompress(head_ref):
+        raise AssertionError("device-chunked decode differs")
+    emit({"plain_modules": {
+        "note": "plain tensor code, no kernel of their own",
+        "input_bytes": len(head), "scan_encode_s": scan_s,
+        "scan_encode_MB_s": len(head) / scan_s / 1e6,
+        "device_chunked_decode_s": chunked_s,
+        "device_chunked_decode_MB_s": len(head) / chunked_s / 1e6,
+        "scan_equals_native": True, "device_chunked_equals_input": True,
+    }})
+
     # ---- the CLI path, once, file to file through cli.main --------------
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
@@ -651,13 +824,14 @@ def main() -> int:
             emit({"profile": profile_paths(data, stream, tmp, a.profile_dir)})
 
     kernels = []
-    for rec in (rec1, rec2, rec3, rec4, rec6):
+    for rec in (rec1, rec2, rec3, rec4, rec5, rec6):
         name = rec["kernel"]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
             "replaces": KERNEL_INFO[name][1],
-            # launches over the two driven paths together
-            "launches": launches[name] + cli_launches[name],
+            # launches over the three driven paths together
+            "launches": (launches[name] + cli_launches[name]
+                         + m_launches[name]),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": max(rec["bytes_ms"], rec["ops_ms"]),

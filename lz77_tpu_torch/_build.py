@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
 
 KERNEL_SOURCES = ("match.cu", "match_chunk.cu", "parse_walk.cu",
-                  "decode_walk.cu", "decode_walk_packed.cu")
+                  "decode_walk.cu", "decode_walk_packed.cu", "fused_walk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +48,9 @@ _KERNEL_ARGTYPES = {
     "lz77_walk_decode": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _I, _P],
     # tokens, T, out, out_cap_words, count, off_bits, stream
     "lz77_walk_decode_packed": [_P, _I, _P, _I, _P, _I, _P],
+    # blocks, halos, rights, avails, valid_exts, entry, sync, tokens, count,
+    # exit, G, B, dlim, depth, la, valid_total, n_tiles, ob, lb, stream
+    "lz77_sweepwalk": [_P] * 10 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

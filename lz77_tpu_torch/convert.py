@@ -2,12 +2,13 @@
 
 The codec has no weights.  What the two packages must agree on is the
 format parameters, the per-batch state — the (G, B) batch inputs, the
-match tables (full and compact), the LOX words and the token fields — and
+match tables (full and compact), the LOX words, the token fields, the
+decoder's carried tail and the scan parser's entry->exit map — and
 the checkpoint manifest of a file encode, which either package may write
 and the other resume.  These functions turn
 the JAX package's values — handed over as Python ints and numpy arrays,
 never as jax arrays — into this package's tensors, with its dtypes, on the
-device asked for.  The tests push the same numpy inputs through both
+device asked for, and :func:`to_numpy` takes a result back.  The tests push the same numpy inputs through both
 packages with them.
 """
 
@@ -74,6 +75,33 @@ def tokens_from_numpy(off, ln, nxt, device=None) -> torch.Tensor:
             np.asarray(off), np.asarray(ln), np.asarray(nxt)
         )
     ).to(dev)
+
+
+def token_fields_from_numpy(off, ln, nxt, count, prev_tail=None, device=None):
+    """Token-field arrays as the JAX package's block encoder and chunk
+    decoder pass them -> (off, ln, nxt, count[, prev_tail]): three (T,)
+    int32 tensors, a 0-d int32 count and, where given, the (H,) uint8 tail
+    of already-decoded bytes."""
+    dev = device_lib.resolve(device)
+    out = tuple(_tensor(a, np.int32, dev) for a in (off, ln, nxt)) + (
+        _tensor(count, np.int32, dev).reshape(()),
+    )
+    if prev_tail is not None:
+        out += (_tensor(prev_tail, np.uint8, dev),)
+    return out
+
+
+def map_from_numpy(bmap, l_head, o_head, device=None):
+    """The ``with_map`` outputs of the scan parser's batch step — the (la,)
+    entry->exit map and the head match tables — as int32 tensors."""
+    dev = device_lib.resolve(device)
+    return tuple(_tensor(a, np.int32, dev) for a in (bmap, l_head, o_head))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor of the port -> the numpy array the JAX package's values are
+    compared with."""
+    return t.detach().cpu().numpy()
 
 
 def compact_from_numpy(packed_L, O16, device=None):

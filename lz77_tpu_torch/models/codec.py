@@ -24,7 +24,8 @@ Two encode pipelines, by name:
 
 Decode picks a backend by name: ``device`` (the walk-decode kernel,
 ``ops.decode_walk``; file to file it is chained stage by stage at bounded
-host memory, :func:`decode_file_device`), ``host`` (vectorized numpy) or
+host memory, :func:`decode_file_device`), ``device-chunked`` (the chunked
+tensor decoder, ``models.decoder``), ``host`` (vectorized numpy) or
 ``native`` (the C++ host decoder).  Nothing here falls back from one
 backend or pipeline to another: one that cannot run raises.
 """
@@ -759,9 +760,10 @@ def decode_bytes(
 ) -> bytes:
     """Decompress a complete reference-format stream.
 
-    ``backend``: "device" (walk-decode kernel on ``device``), "host"
-    (numpy pointer doubling) or "native" (C++ host decoder).  The backend
-    that ran is recorded in ``stats.backend``.
+    ``backend``: "device" (walk-decode kernel on ``device``),
+    "device-chunked" (the chunked tensor decoder on ``device``, plain
+    tensor code), "host" (numpy pointer doubling) or "native" (C++ host
+    decoder).  The backend that ran is recorded in ``stats.backend``.
     """
     st = stats if stats is not None else DecodeStats()
     st.requested = backend
@@ -774,6 +776,11 @@ def decode_bytes(
             off, ln, nxt, off_bits=params.off_bits, device=device
         )
         st.backend = "device-walk"
+    elif backend == "device-chunked":
+        from . import decoder
+
+        out = decoder.decode_stream(data, device=device)
+        st.backend = "device-chunked"
     elif backend == "host":
         from . import host_decode
 
@@ -785,7 +792,7 @@ def decode_bytes(
     else:
         raise ValueError(
             f"unknown decode backend {backend!r}; "
-            "available: device, host, native"
+            "available: device, device-chunked, host, native"
         )
     st.output_bytes = len(out)
     return out

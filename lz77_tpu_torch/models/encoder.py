@@ -1,5 +1,5 @@
 """Block encoder pipeline (device side): the match phase of the host-parse
-pipeline.
+pipeline, and the full single-block pipeline.
 
 * :func:`match_blocks` — exact match tables for a batch of independent
   blocks.  Blocks depend only on raw input bytes (halo + right extension),
@@ -11,6 +11,10 @@ pipeline.
 * :func:`match_blocks_compact` — the same with transfer-minimal outputs, and
   :func:`gather_offsets` / :func:`unpack_lengths`, its two readers.
 
+* :func:`encode_block` — one block through match -> parse -> gather as
+  tensor functions; used by tests and where a per-block parse (entry=0) is
+  acceptable.
+
 The batch dimension is written out (the kernels take (G, B) batches), where
 the JAX package maps a one-block function over the batch.
 """
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import match as match_ops
+from ..ops import parse as parse_ops
 
 
 def match_blocks(
@@ -87,3 +92,38 @@ def unpack_lengths(packed: np.ndarray, B: int, la: int) -> np.ndarray:
         L[1::2] = packed >> 4
         return L
     return packed
+
+
+def encode_block(
+    block,
+    halo,
+    right,
+    avail,
+    valid_ext,
+    entry=0,
+    *,
+    la: int,
+    sb: int,
+    matcher: str = match_ops.DEFAULT_MATCHER,
+    device: str | torch.device | None = None,
+):
+    """One block -> (off, len, next, count, exit_pos), padded to block size.
+
+    The arguments are those of ``ops.match.find_matches`` for a single block
+    plus the parse entry; the fields are (B,) int32 tensors, ``count`` and
+    ``exit_pos`` 0-d int32 tensors.
+    """
+    L, O = match_ops.find_matches(
+        block, halo, right, avail, valid_ext, la=la, sb=sb, device=device,
+        matcher=matcher,
+    )
+    dev = L.device
+    B = L.shape[0]
+    vl = torch.clamp(torch.as_tensor(valid_ext).to(dev), max=B)
+    starts, count, exit_pos = parse_ops.greedy_parse(L, vl, entry, la=la)
+    block_ext = torch.cat([
+        torch.as_tensor(block).to(device=dev, dtype=torch.uint8),
+        torch.as_tensor(right).to(device=dev, dtype=torch.uint8),
+    ])
+    off, ln, nxt = parse_ops.gather_tokens(starts, vl, L, O, block_ext, la=la)
+    return off, ln, nxt, count, exit_pos

@@ -1,4 +1,4 @@
-"""Device-resident fused encode: match -> LOX -> walk parse + pack per batch.
+"""Device-resident fused encode: match -> parse -> pack per batch, on the device.
 
 Replaces the reference's serial token loop (lz77.c:89-136) AND its bit
 writer (lz77.c:246-251, bitio.c:203-236) with one device computation per
@@ -6,13 +6,26 @@ batch; the host only uploads raw bytes and fetches the packed payload prefix
 and two scalars.  Token widths must be byte multiples (the default 12+4+8 =
 24 bits is).
 
-A batch is G consecutive blocks, one contiguous span of the input.  Per
-batch: the match sweep gives (L, O) for every position (``ops.match``);
-``build_lox`` fuses them with the bytes into one word per position; the
-walk kernel (``ops.parse_walk``) follows the greedy chain from the entry
-the previous batch left and writes packed token words, their count and the
-next entry; the words are cut to ``width/8`` bytes each.  Streams are
-byte-identical to the numpy executable spec and the native host encoder.
+A batch is G consecutive blocks, one contiguous span of the input.  The
+batch step has three forms, chosen by ``parser``:
+
+* ``"walk"`` (the default, :func:`encode_batch_walk`): the match sweep gives
+  (L, O) for every position (``ops.match``); ``build_lox`` fuses them with
+  the bytes into one word per position; the walk kernel (``ops.parse_walk``)
+  follows the greedy chain from the entry the previous batch left and writes
+  packed token words, their count and the next entry; the words are cut to
+  ``width/8`` bytes each.
+* ``"merged"`` (``ops.fused_walk.encode_batch_sweepwalk``): the same result
+  from one kernel that keeps the match tables on the chip.
+* ``"scan"`` (:func:`encode_batch_device`): the match sweep, then the parse
+  as plain tensor code — per-sub-block jump tables squared into entry->exit
+  maps, the maps composed by a prefix scan, token starts by a batched
+  pointer-doubling orbit, compaction and pack.  It holds no kernel of its
+  own; it also reports per-block token counts and, on request, the batch's
+  entry->exit map.
+
+Streams are byte-identical across the three, to the numpy executable spec
+and to the native host encoder.
 
 The batch inputs keep the JAX package's contract — (G, B) blocks, each with
 its own halo and right extension — so the two packages are compared like
@@ -23,11 +36,14 @@ and the host fetches the exact payload prefix.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import bitio, spec
 from .. import device as device_lib
+from ..ops import fused_walk
 from ..ops import match as match_ops
 from ..ops import parse_walk
 from ..utils import faults as faults_lib
@@ -39,6 +55,13 @@ from ..utils import metrics as metrics_lib
 # near 130 MB.  Both stay arguments.
 DEFAULT_BLOCK_SIZE = 1 << 20
 DEFAULT_BATCH_BLOCKS = 8
+# Sub-block of the scan parser: its tables are (span / s, s + la) wide.
+DEFAULT_SCAN_SUB_BLOCK = 1 << 10
+PARSERS = ("walk", "merged", "scan")
+
+
+def _log2_ceil(n: int) -> int:
+    return max(1, (n - 1).bit_length())
 
 
 def encode_batch_walk(
@@ -89,9 +112,154 @@ def encode_batch_walk(
         lox, entry0, int(valid_total),
         la=la, ob=params.off_bits, lb=params.len_bits, sub_block=sub_block,
     )
-    # little-endian bytes of each word, the low nb of them
-    payload = tokens.view(torch.uint8).reshape(N, 4)[:, :nb].reshape(N * nb)
+    payload = parse_walk.token_bytes(tokens, nb)
     return payload, torch.zeros(G, dtype=torch.int32, device=dev), total, exit_e
+
+
+def encode_batch_device(
+    blocks,       # (G, B) uint8
+    halos,        # (G, H) uint8
+    rights,       # (G, R) uint8
+    avails,       # (G,) int32
+    valid_exts,   # (G,) int32
+    valid_total: int,   # valid bytes in the batch span
+    entry0,       # (1,) int32 tensor (or int): parse entry into the batch
+    *,
+    la: int,
+    sb: int,
+    sub_block: int = DEFAULT_SCAN_SUB_BLOCK,
+    with_map: bool = False,
+    head_w: int = 8192,
+    device: str | torch.device | None = None,
+):
+    """One fused device step, scan-parser variant (plain tensor code).
+
+    Returns (payload, counts, total_tokens, exit_entry):
+      payload: (M*s*nb,) uint8 — packed token bytes, valid prefix only
+        (M = ceil(G*B / s) sub-blocks of s = ``sub_block`` bytes);
+      counts: (G,) int32 — tokens per block (for stats/manifest);
+      total_tokens, exit_entry: (1,) int32 tensors on the device.
+
+    ``with_map=True`` additionally returns (bmap, l_head, o_head): the
+    batch's full (la,) entry->exit-overhang map (free — the sub-block map
+    composition already produces it) and the first ``head_w`` positions'
+    match tables.  With them a range can be parsed from entry 0 while the
+    exact exit for any entry rides in the composed map, and a nonzero true
+    entry needs only a head-window resync.
+    """
+    params = spec.Params(la=la, sb=sb)
+    if params.width % 8 != 0:
+        raise ValueError("fused pipeline requires byte-aligned token width")
+    if sub_block < 1:
+        raise ValueError("sub_block must be positive")
+    dev = device_lib.resolve(device)
+    nb = params.width // 8
+
+    def prep(a, dtype):
+        return torch.as_tensor(a).to(device=dev, dtype=dtype).contiguous()
+
+    blocks = prep(blocks, torch.uint8)
+    rights = prep(rights, torch.uint8)
+    G, B = blocks.shape
+    s = sub_block
+    N = G * B
+    M = -(-N // s)
+    NP = M * s  # padded span length
+    vt = int(valid_total)
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    # ---- 1. match tables (the hot phase), flattened to the batch span ----
+    L, O = match_ops.match_sweep(
+        blocks, prep(halos, torch.uint8), rights, prep(avails, torch.int32),
+        prep(valid_exts, torch.int32), la=la, sb=sb,
+    )
+    L_flat = L.reshape(N).to(torch.int64)
+    O_flat = O.reshape(N).to(torch.int64)
+
+    # ---- 2. per-sub-block jump tables and entry->exit maps ----------------
+    # J[m, p]: local chain position p in [0, s+la) of sub-block m.  Token
+    # starts are positions with global index < valid_total; everything else
+    # is a fixpoint (greedy_parse semantics, ops/parse.py).
+    L_pad = torch.cat([L_flat, torch.zeros(NP - N + la, **i64)])
+    pos_l = torch.arange(s + la, **i64)[None, :]        # (1, s+la)
+    base = (torch.arange(M, **i64) * s)[:, None]        # (M, 1)
+    gpos = base + pos_l                                 # (M, s+la)
+    live = (pos_l < s) & (gpos < vt)
+    J = torch.where(
+        live, torch.clamp(pos_l + L_pad[gpos] + 1, max=s + la - 1), pos_l
+    )
+    # f^s by squaring: log2(s) gathers over (M, s+la).
+    F = J
+    for _ in range(_log2_ceil(s)):
+        F = torch.gather(F, 1, F)
+    # next-entry map, rebased against the sub-block's VALID span: chains
+    # stop at the first position >= the valid boundary, so the overhang is
+    # exit - vl_local.  For full sub-blocks vl_local == s; for the batch's
+    # ragged tail it is the true end-of-batch boundary; for fully-padded
+    # sub-blocks (vl_local == 0) the map is the identity.
+    vl_local = torch.clamp(vt - base, 0, s)             # (M, 1)
+    nmap = torch.clamp(F[:, :la] - vl_local, 0, la - 1)  # (M, la)
+
+    # ---- 3. compose maps across sub-blocks: inclusive prefix scan ---------
+    # (a then b)[e] = b[a[e]] is associative, so log2(M) rounds of "compose
+    # with the prefix d rows up" give every prefix.
+    P = nmap
+    d = 1
+    while d < M:
+        P = torch.cat([P[:d], torch.gather(P[d:], 1, P[:-d])])
+        d *= 2
+    e0 = prep(entry0, torch.int64).reshape(1).clamp(0, la - 1)
+    entries = torch.cat([e0, P[:-1].index_select(1, e0).reshape(-1)])  # (M,)
+    exit_entry = P[-1].index_select(0, e0)
+
+    # ---- 4. token starts: batched pointer-doubling orbit -----------------
+    # S[m, i] = f^i(entry_m); chain values never exceed s+la-1.
+    S = torch.zeros((M, s), **i64)
+    S[:, 0] = entries
+    Jp = J
+    m_fill = 1
+    while m_fill < s:
+        span = min(m_fill, s - m_fill)
+        S[:, m_fill : m_fill + span] = torch.gather(Jp, 1, S[:, :span])
+        Jp = torch.gather(Jp, 1, Jp)
+        m_fill *= 2
+    counts_m = (S < vl_local).sum(dim=1)                # (M,)
+
+    # ---- 5. compact + pack ------------------------------------------------
+    ccum = torch.cat([torch.zeros(1, **i64), torch.cumsum(counts_m, 0)])
+    total_tokens = ccum[-1:]
+    t = torch.arange(NP, **i64)
+    mi = torch.clamp(torch.searchsorted(ccum, t, right=True) - 1, 0, M - 1)
+    li = t - ccum[mi]
+    # slots past the total index anywhere; they are zeroed below
+    start_l = S.reshape(-1)[torch.clamp(mi * s + li, max=NP - 1)]
+    gstart = torch.clamp(mi * s + start_l, max=N - 1)
+    ln = L_flat[gstart]
+    x_ext = torch.cat([blocks.reshape(N), rights[G - 1]]).to(torch.int64)
+    nxt = x_ext[torch.clamp(gstart + ln, max=N + rights.shape[1] - 1)]
+    v = (
+        O_flat[gstart]
+        | (ln << params.off_bits)
+        | (nxt << (params.off_bits + params.len_bits))
+    )
+    v = torch.where(t < total_tokens, v, 0)
+    # 32-bit token words set the sign bit: fold into int32's range first
+    v = torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+    payload = parse_walk.token_bytes(v, nb)
+
+    # per-block counts for stats/manifest
+    if B % s == 0:
+        counts_b = counts_m.reshape(G, B // s).sum(dim=1)
+    else:
+        blk = base[:, 0] // B  # block of each sub-block's first byte
+        counts_b = torch.zeros(G, **i64).index_add_(0, blk, counts_m)
+    out = (payload, counts_b.to(torch.int32), total_tokens.to(torch.int32),
+           exit_entry.to(torch.int32))
+    if with_map:
+        w = min(head_w, N)
+        out += (P[-1].to(torch.int32),          # (la,) batch entry->exit map
+                L_flat[:w].to(torch.int32), O_flat[:w].to(torch.int32))
+    return out
 
 
 def _resolve_fused_config(
@@ -99,17 +267,27 @@ def _resolve_fused_config(
     n: int,
     block_size: int | None,
     sub_block: int | None,
+    parser: str = "walk",
 ):
-    """Shared knob resolution: (block_size, sub_block) for an n-byte input."""
+    """Shared knob resolution: (block_size, sub_block, parser) for an
+    n-byte input.  ``sub_block`` is the walk's or the scan's; the merged
+    kernel has its own fixed tile and takes none."""
     if params.width % 8 != 0:
         raise ValueError("fused pipeline requires byte-aligned token width")
+    if parser not in PARSERS:
+        raise ValueError(
+            f"unknown parser {parser!r}; available: {', '.join(PARSERS)}"
+        )
+    if parser == "walk" and fused_walk.MERGED_DEFAULT:
+        parser = "merged"
     if block_size is None:
         block_size = min(DEFAULT_BLOCK_SIZE, max(n, 1))
     if sub_block is None:
-        sub_block = parse_walk.DEFAULT_SUB_BLOCK
+        sub_block = (DEFAULT_SCAN_SUB_BLOCK if parser == "scan"
+                     else parse_walk.DEFAULT_SUB_BLOCK)
     if block_size < 1 or sub_block < 1:
         raise ValueError("block_size and sub_block must be positive")
-    return block_size, sub_block
+    return block_size, sub_block, parser
 
 
 def iter_batches_fused(
@@ -119,6 +297,7 @@ def iter_batches_fused(
     block_size: int | None = None,
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
     sub_block: int | None = None,
+    parser: str = "walk",
     start_batch: int = 0,
     entry: int = 0,
     phases=None,
@@ -135,14 +314,25 @@ def iter_batches_fused(
     device tensor, so nothing on the dependency chain waits for the host.
     Launches are asynchronous: while the host stages and fetches, the one
     CUDA stream keeps working through what was submitted.
+
+    ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel),
+    ``"merged"`` (the one merged kernel; it never gives way to the walk) or
+    ``"scan"`` (match sweep + the scan parser in plain tensor code).
     """
     from . import codec as codec_model  # lazy: avoid import cycle
 
     dev = device_lib.resolve(device)
     n = x.shape[0]
-    block_size, sub_block = _resolve_fused_config(
-        params, n, block_size, sub_block
+    block_size, sub_block, parser = _resolve_fused_config(
+        params, n, block_size, sub_block, parser
     )
+    if parser == "merged":
+        step = fused_walk.encode_batch_sweepwalk
+    else:
+        step = functools.partial(
+            encode_batch_walk if parser == "walk" else encode_batch_device,
+            sub_block=sub_block,
+        )
     nb_bytes = params.width // 8
     B, G = block_size, batch_blocks
     H, R = params.d_limit, params.len_limit
@@ -161,9 +351,9 @@ def iter_batches_fused(
         vt = min(gn * B, n - g0 * B)
         if stats is not None:
             stats.h2d_bytes += sum(a.nbytes for a in (gb, gh, gr, ga, gv))
-        payload, _, total, exit_entry = encode_batch_walk(
+        payload, _, total, exit_entry = step(
             gb, gh, gr, ga, gv, vt, entry_dev,
-            la=params.la, sb=params.sb, sub_block=sub_block, device=dev,
+            la=params.la, sb=params.sb, device=dev,
         )
         return bi, payload, total, exit_entry
 
@@ -214,17 +404,23 @@ def encode_bytes_fused(
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
     sub_block: int | None = None,
     stats=None,
+    parser: str = "walk",
     device: str | torch.device | None = None,
 ) -> bytes:
-    """Compress via the fused device pipeline (byte-aligned widths only)."""
+    """Compress via the fused device pipeline (byte-aligned widths only).
+
+    ``parser``: "walk" (match sweep + walk kernel, the default), "merged"
+    (one kernel for match, parse and pack) or "scan" (match sweep + the
+    plain-tensor scan parser); the three give one stream.
+    """
     from . import codec as codec_model  # lazy: avoid import cycle
 
     params = params or spec.Params()
     dev = device_lib.resolve(device)
     x = np.frombuffer(data, dtype=np.uint8)
     n = x.shape[0]
-    block_size, sub_block = _resolve_fused_config(
-        params, n, block_size, sub_block
+    block_size, sub_block, parser = _resolve_fused_config(
+        params, n, block_size, sub_block, parser
     )
     st = stats if stats is not None else codec_model.EncodeStats()
     st.input_bytes = n
@@ -238,7 +434,7 @@ def encode_bytes_fused(
     with metrics_lib.StopwatchPhase(st.phases, "total"):
         for _, _, _, tok, payload in iter_batches_fused(
             x, params, block_size=block_size, batch_blocks=batch_blocks,
-            sub_block=sub_block, stats=st, device=dev,
+            sub_block=sub_block, parser=parser, stats=st, device=dev,
         ):
             total_tokens += tok
             if payload:

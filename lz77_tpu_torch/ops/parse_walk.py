@@ -73,6 +73,13 @@ def build_lox(
     return q.view(torch.int32).reshape(N + la)
 
 
+def token_bytes(tokens: torch.Tensor, nb: int) -> torch.Tensor:
+    """(N,) int32 token words -> (N*nb,) uint8: the low ``nb`` bytes of each
+    word, little-endian — the payload of a byte-aligned token width."""
+    N = tokens.shape[0]
+    return tokens.view(torch.uint8).reshape(N, 4)[:, :nb].reshape(N * nb)
+
+
 def walk_parse_pack_plain(
     lox: torch.Tensor,
     entry: torch.Tensor,

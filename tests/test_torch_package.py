@@ -15,7 +15,8 @@ import lz77_tpu
 import lz77_tpu_torch
 from lz77_tpu_torch import _build, convert, device
 from lz77_tpu_torch.models import codec, fused
-from lz77_tpu_torch.ops import decode_walk, match, match_chunk, parse_walk
+from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
+                                parse_walk)
 
 torch.set_num_threads(1)
 
@@ -37,7 +38,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "lz77_tpu_torch.convert", "lz77_tpu_torch.native",
             "lz77_tpu_torch.cli", "lz77_tpu_torch.ops.match_chunk",
             "lz77_tpu_torch.models.encoder", "lz77_tpu_torch.utils.manifest",
-            "lz77_tpu_torch.utils.profiling"} <= set(names)
+            "lz77_tpu_torch.utils.profiling",
+            "lz77_tpu_torch.ops.fused_walk", "lz77_tpu_torch.ops.parse",
+            "lz77_tpu_torch.ops.pack", "lz77_tpu_torch.ops.decode",
+            "lz77_tpu_torch.models.decoder"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -89,10 +93,22 @@ def test_default_device_raises_without_a_card():
             np.zeros(8, np.uint8), lz77_tpu_torch.Params())),
         lambda: decode_walk.decode_tokens_walk_packed(
             np.array([0]), np.array([0]), np.array([65]), off_bits=12),
+        lambda: fused_walk.encode_batch_sweepwalk(
+            np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
+            np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
+            np.full(1, 8, np.int32), 8, 0, la=15, sb=4095),
+        lambda: fused.encode_bytes_fused(b"abc", parser="merged"),
+        lambda: fused.encode_bytes_fused(b"abc", parser="scan"),
+        lambda: fused.encode_batch_device(
+            np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
+            np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
+            np.full(1, 8, np.int32), 8, 0, la=15, sb=4095, device="cuda"),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
-         "iter_block_bits", "decode_tokens_walk_packed"],
+         "iter_block_bits", "decode_tokens_walk_packed",
+         "encode_batch_sweepwalk", "encode_bytes_fused_merged",
+         "encode_bytes_fused_scan", "encode_batch_device"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
@@ -101,7 +117,8 @@ def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
                 parse_walk.walk_parse_pack.launches,
                 decode_walk.walk_decode.launches,
                 match_chunk.match_chunk.launches,
-                decode_walk.walk_decode_packed.launches)
+                decode_walk.walk_decode_packed.launches,
+                fused_walk.sweep_walk.launches)
 
     before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -148,6 +165,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
                                  matcher="chunk")
     assert s2 == s
     assert match_chunk.match_chunk.launches == 0
+    s3 = fused.encode_bytes_fused(data, parser="merged", device="cpu")
+    assert s3 == s
+    assert fused_walk.sweep_walk.launches == 0
+
+
+def test_every_kernel_source_is_built_and_packaged():
+    """Each ``csrc/*.cu`` is in the build's source list, and the packaging
+    glob carries the directory."""
+    on_disk = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    assert sorted(_build.KERNEL_SOURCES) == on_disk
+    assert "fused_walk.cu" in on_disk
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml")) as f:
+        assert 'lz77_tpu_torch = ["csrc/*.cu"]' in f.read()
 
 
 def test_convert_params_and_batch():
