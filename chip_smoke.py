@@ -30,6 +30,13 @@ launch counts set to 0 just before and read just after:
 The plain tensor modules (the scan parser, the chunked decoder) run on the
 card on the first 8 MiB and are held against the same references.
 
+The packed-word decode is also held against the walk decode's bytes and the
+input on streams several of its tiles long (tokens across tile boundaries,
+sources more than a tile back, every length residue mod 4, outputs cut
+short) and timed on 8 MiB of zeros and of random bytes; the chunk matcher is
+also held against the sweep's tables and timed on a zeros batch, a random
+batch and one 1 MiB block at la=255, sb=65535.
+
 Each phase prints one JSON line; any failed check raises and the exit code
 is non-zero.  Without a CUDA device it exits non-zero at once: nothing here
 runs on the CPU instead.
@@ -264,29 +271,41 @@ def check_decode(name, stream: bytes, data: bytes, reps=0, split=None):
                 lambda: decode_walk.walk_decode_plain(toks, T, **kw), 1),
             bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             ops_ms=len(want) / INT_OPS_PER_S * 1e3,  # one move per byte
+            scratch_bytes=decode_walk.walk_decode.scratch_bytes,
         )
     return rec
 
 
 # ---------------------------------------------------------------- K6 -----
 
-def check_decode_packed(name, stream: bytes, data: bytes, reps=0):
-    """Packed-word kernel vs its plain version and vs K3's bytes."""
+def check_decode_packed(name, stream: bytes, data: bytes, reps=0,
+                        cap_words=None):
+    """Packed-word kernel vs its plain version, vs K3's bytes and vs the
+    input.  ``cap_words`` cuts the output short: the tokens that do not fit
+    whole are dropped by all three alike."""
     p, off, ln, nxt = bitio.parse_stream(stream)
     toks = torch.from_numpy(decode_walk.pack_token_words(off, ln, nxt)).cuda()
     T = toks.shape[0]
-    kw = dict(off_bits=p.off_bits, out_cap_words=len(data) // 4 + 2)
+    words = len(data) // 4 + 2 if cap_words is None else cap_words
+    ends = np.cumsum(ln.astype(np.int64) + 1)
+    kept = int(ends[ends <= 4 * words][-1]) if (ends <= 4 * words).any() else 0
+    kw = dict(off_bits=p.off_bits, out_cap_words=words)
     out, cnt = decode_walk.walk_decode_packed(toks, T, **kw)
     outp, cntp = decode_walk.walk_decode_packed_plain(
-        toks, T, out_cap_words=kw["out_cap_words"])
-    ref, _ = decode_walk.walk_decode(toks, T, out_cap=len(data))
+        toks, T, out_cap_words=words)
+    ref, _ = decode_walk.walk_decode(
+        toks, T, out_cap=min(4 * words, len(data)))
     torch.cuda.synchronize()
-    got = out.view(torch.uint8)[: len(data)]
-    err = max(max_err(out, outp), max_err(cnt, cntp), max_err(got, ref))
+    raw = out.view(torch.uint8)
+    err = max(max_err(out, outp), max_err(cnt, cntp),
+              max_err(raw[: ref.shape[0]], ref))
     rec = {"kernel": "decode_packed_kernel", "case": name, "tokens": T,
-           "out_bytes": len(data), "off_bits": p.off_bits, "max_abs_err": err}
-    if err != 0 or int(cnt) != len(data) \
-            or got.cpu().numpy().tobytes() != data:
+           "out_bytes": len(data), "out_cap_words": words, "kept_bytes": kept,
+           "off_bits": p.off_bits, "max_abs_err": err}
+    host = raw.cpu().numpy()
+    if err != 0 or int(cnt) != len(data) or host[kept:].any() \
+            or host[:kept].tobytes() != data[:kept] \
+            or (cap_words is None and kept != len(data)):
         raise AssertionError(f"decode_packed_kernel wrong: {rec}")
     if reps:
         nbytes = T * 4 + len(data) + 4
@@ -294,9 +313,12 @@ def check_decode_packed(name, stream: bytes, data: bytes, reps=0):
             ms=time_ms(
                 lambda: decode_walk.walk_decode_packed(toks, T, **kw), reps),
             plain_ms=time_ms(lambda: decode_walk.walk_decode_packed_plain(
-                toks, T, out_cap_words=kw["out_cap_words"]), 1),
+                toks, T, out_cap_words=words), 1),
             bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             ops_ms=len(data) / INT_OPS_PER_S * 1e3,  # one move per byte
+            tile_words=decode_walk.TILE_WORDS,
+            tiles=-(-words // decode_walk.TILE_WORDS),
+            scratch_bytes=decode_walk.walk_decode_packed.scratch_bytes,
         )
         rec["ns_per_token"] = rec["ms"] * 1e6 / T
     return rec
@@ -674,7 +696,41 @@ def main() -> int:
          spec.Params(255, 4095)),
     ):
         checks.append(check_decode_packed(name, native.encode(d, p), d))
-    del s, d
+    # K6 across tiles (a tile is TILE_WORDS words of output): tokens that
+    # straddle tile boundaries, off == 1 copies of the longest length across
+    # them, sources more than a tile back at the widest window, an output
+    # shorter than one tile, every length residue mod 4, outputs cut short
+    tile_bytes = 4 * decode_walk.TILE_WORDS
+    tiles_text = make_text(rng, 4 * tile_bytes + 4001).tobytes()
+    # 5000 bytes that come back every 63,000: copies from 63,000 behind
+    far_block = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    far_tiles = b"".join(
+        far_block + rng.integers(0, 256, 58000, dtype=np.uint8).tobytes()
+        for _ in range(4))
+    for name, d, p in (
+        ("tiles_text", tiles_text, p0),
+        ("tiles_off1_len254", bytes(3 * tile_bytes + 77),
+         spec.Params(255, 4095)),
+        ("tiles_off3", b"abc" * (tile_bytes + 5), p0),
+        ("tiles_far_la15", far_tiles, spec.Params(15, 65535)),
+        ("tiles_far_la255", far_tiles, spec.Params(255, 65535)),
+        ("tiles_text_la255_sb65535", tiles_text[: 200_000 + 3],
+         spec.Params(255, 65535)),
+        ("under_one_tile", tiles_text[: tile_bytes // 3], p0),
+    ):
+        s = native.encode(d, p)
+        checks.append(check_decode_packed(name, s, d))
+        if name == "tiles_text":
+            for r in range(4):  # every residue of the length mod 4
+                dr = d[: 2 * tile_bytes + 8 + r]
+                checks.append(check_decode_packed(
+                    f"tiles_len_mod4_{r}", native.encode(dr, p), dr))
+            for words in (0, 1, tile_bytes // 8 + 1,
+                          decode_walk.TILE_WORDS, 2 * decode_walk.TILE_WORDS + 5,
+                          len(d) // 4 - 1):
+                checks.append(check_decode_packed(
+                    f"tiles_cut_to_{words}_words", s, d, cap_words=words))
+    del s, d, tiles_text, far_tiles
 
     # main-path shapes: the second 8 MiB text batch; the whole stream
     G, B = codec.DEFAULT_BATCH_BLOCKS, codec.DEFAULT_BLOCK_SIZE
@@ -684,6 +740,26 @@ def main() -> int:
     del args, L, O
     rec4, _ = check_match("main_path_batch", x, G, G, B, p0, reps=5,
                           kernel="match_chunk_kernel")
+    # K4 alone on a batch of zeros (every position saturates in the first
+    # chunk), on random bytes (no early exit, the filter rejects nearly all)
+    # and at the deepest la and widest window on one 1 MiB block (66 KB of
+    # shared memory a thread block: another occupancy)
+    zeros_batch = np.zeros(G * B, np.uint8)
+    random_batch = rng.integers(0, 256, G * B, dtype=np.uint8)
+    for name, xs, g0, Gk, pk in (
+        ("zeros", zeros_batch, 0, G, p0), ("random", random_batch, 0, G, p0),
+        ("la255_sb65535", x, G, 1, spec.Params(255, 65535)),
+    ):
+        args, _ = batch_on_card(xs, g0, Gk, B, pk)
+        L4, O4 = match_chunk.match_chunk(*args, la=pk.la, sb=pk.sb)
+        L1, O1 = match.match_sweep(*args, la=pk.la, sb=pk.sb)
+        if max(max_err(L4, L1), max_err(O4, O1)) != 0:
+            raise AssertionError(f"match_chunk_kernel != match_kernel: {name}")
+        rec4[f"{name}_ms"] = time_ms(
+            lambda: match_chunk.match_chunk(*args, la=pk.la, sb=pk.sb), 3)
+        rec4[f"{name}_match_kernel_ms"] = time_ms(
+            lambda: match.match_sweep(*args, la=pk.la, sb=pk.sb), 3)
+        del args, L4, O4, L1, O1
     # K5 on the same text batch, then its time alone on a batch of zeros
     # (the sweep exits at distance 1: the hand-off chain is what is left)
     # and on a batch of random bytes (no early exit, a token a byte)
@@ -692,15 +768,36 @@ def main() -> int:
     rec5["plain_ms"] = time_ms(lambda: fused_walk.sweep_walk_plain(
         *args, e5, vt5, la=p0.la, sb=p0.sb), 1)
     del args
-    for name, xs in (("zeros", np.zeros(G * B, np.uint8)),
-                     ("random", rng.integers(0, 256, G * B, dtype=np.uint8))):
+    for name, xs in (("zeros", zeros_batch), ("random", random_batch)):
         r, _ = check_sweepwalk(f"main_shape_{name}", xs, 0, G, B, p0, reps=5)
         rec5[f"{name}_ms"] = r["ms"]
         rec5[f"{name}_match_plus_walk_ms"] = r["match_plus_walk_ms"]
         rec5[f"{name}_tokens"] = r["tokens"]
     ref_stream = native.encode(data, p0)
     rec3 = check_decode("main_path_stream", ref_stream, data, reps=3)
-    rec6 = check_decode_packed("main_path_stream", ref_stream, data, reps=1)
+    rec6 = check_decode_packed("main_path_stream", ref_stream, data, reps=3)
+    rec6["walk_decode_kernel_scratch_bytes"] = rec3["scratch_bytes"]
+    # the same stream at other tile sizes (fewer, larger tiles: fewer hops
+    # of the tile-to-tile hand-off); the module's own size is put back
+    own_tile = decode_walk.TILE_WORDS
+    rec6["ms_by_tile_words"] = {own_tile: rec6["ms"]}
+    try:
+        for tw in (2048, 4096, 8192, 14336):
+            decode_walk.TILE_WORDS = tw
+            r = check_decode_packed(f"main_path_stream_tile_{tw}", ref_stream,
+                                    data, reps=3)
+            rec6["ms_by_tile_words"][tw] = r["ms"]
+    finally:
+        decode_walk.TILE_WORDS = own_tile
+    # K6 alone on 8 MiB of zeros (no tile needs another) and of random
+    # bytes (short copies, nearly all literals)
+    for name, xs in (("zeros", zeros_batch), ("random", random_batch)):
+        d = xs.tobytes()
+        r = check_decode_packed(f"main_shape_{name}", native.encode(d, p0), d,
+                                reps=3)
+        rec6[f"{name}_ms"] = r["ms"]
+        rec6[f"{name}_tokens"] = r["tokens"]
+    del zeros_batch, random_batch, d
     checks += [rec1, rec2, rec3, rec4, rec5, rec6]
     emit({"kernel_checks": checks, "tolerance": 0})
 

@@ -4,8 +4,8 @@ The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface and bound with ``ctypes``: no
 PyTorch header is included, so a build takes seconds.  Each source is
 compiled by its own ``nvcc`` process, all started together, and the objects
-are linked once.  Libraries are named after a hash of their sources and
-flags, so a stale one is never loaded, and are moved into place atomically,
+are linked once.  Libraries are named after a hash of every file under
+``csrc/`` (headers too) and the flags, so a stale one is never loaded, and are moved into place atomically,
 so concurrent processes may race to build without harm.
 
 Nothing here runs at import: a machine without ``nvcc`` can import every
@@ -46,8 +46,9 @@ _KERNEL_ARGTYPES = {
                              _I, _I, _I, _I, _I, _P],
     # tokens, T, buf, wp, out_cap, count, sums, ptr, flags, rounds, stream
     "lz77_walk_decode": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _I, _P],
-    # tokens, T, out, out_cap_words, count, off_bits, stream
-    "lz77_walk_decode_packed": [_P, _I, _P, _I, _P, _I, _P],
+    # tokens, T, out, out_cap_words, count, sums, sync, off_bits, tile_words,
+    # stream
+    "lz77_walk_decode_packed": [_P, _I, _P, _L, _P, _P, _P, _I, _I, _P],
     # blocks, halos, rights, avails, valid_exts, entry, sync, tokens, count,
     # exit, G, B, dlim, depth, la, valid_total, n_tiles, ob, lb, stream
     "lz77_sweepwalk": [_P] * 10 + [_I] * 9 + [_P],
@@ -92,10 +93,19 @@ def _run_all(cmds, logs) -> None:
             )
 
 
+def kernel_tag() -> str:
+    """Hash of the flags and of every file under ``csrc/``, headers
+    included: a source may include any of them, so a change to any one
+    must name a new library."""
+    return _tag(
+        [os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))], NVCC_FLAGS
+    )
+
+
 def build_kernels() -> str:
     """Compile ``csrc/*.cu`` if needed; return the shared library's path."""
     srcs = [os.path.join(CSRC, s) for s in KERNEL_SOURCES]
-    tag = _tag(srcs, NVCC_FLAGS)
+    tag = kernel_tag()
     lib = os.path.join(BUILD_DIR, f"liblz77_kernels_{tag}.so")
     if os.path.exists(lib):
         return lib

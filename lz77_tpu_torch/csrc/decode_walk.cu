@@ -8,8 +8,9 @@
 //
 // The replay is serial only through its copy chains, so it runs as parent
 // pointers over the output bytes, in stream-ordered kernels:
-//   1. decode_sums / decode_scan: exclusive scan of len+1 over the tokens
-//      (per-block sums, then one block scans the sums): every token's start.
+//   1. token_sums / token_starts (decode_common.cuh, shared with K6):
+//      exclusive scan of len+1 over the tokens (per-block sums, then one
+//      block scans the sums): every token's start.
 //   2. decode_iota / decode_init: every byte starts as its own root; a warp
 //      takes 32 tokens and walks their bytes in order (coalesced), finds
 //      each byte's token by a shuffle search over the 32 starts, and writes
@@ -33,67 +34,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;
+using lz77::FULL;
+constexpr int THREADS = lz77::SCAN_THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 8;
-constexpr int CHUNK = THREADS * ITEMS;  // tokens per thread block
-
-// Inclusive scan of v over the thread block; *total is the block's sum.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, d);
-    if (lane >= d) v += u;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < WARPS; ++w) {
-    const int s = warp_sums[w];
-    if (w < warp) before += s;
-    all += s;
-  }
-  __syncthreads();  // warp_sums may be written again
-  *total = all;
-  return v + before;
-}
-
-__device__ __forceinline__ int token_size(const int32_t* toks, int T,
-                                          long long i) {
-  return i < T ? (int)(((uint32_t)toks[i] >> 16) & 0xFFu) + 1 : 0;
-}
-
-__global__ void __launch_bounds__(THREADS) decode_sums_kernel(
-    const int32_t* __restrict__ toks, int T, int32_t* __restrict__ sums) {
-  __shared__ int ws[WARPS];
-  const long long base = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  int s = 0;
-  for (int it = 0; it < ITEMS; ++it)
-    s += token_size(toks, T, base + it * THREADS);
-  int total;
-  block_inclusive_scan(s, ws, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// One block: sums[b] <- sum of sums[0..b), *cnt <- sum of all.
-__global__ void __launch_bounds__(THREADS) decode_scan_kernel(
-    int32_t* __restrict__ sums, int nb, int32_t* __restrict__ cnt) {
-  __shared__ int ws[WARPS];
-  int carry = 0;
-  for (int b0 = 0; b0 < nb; b0 += THREADS) {
-    const int i = b0 + threadIdx.x;
-    const int v = i < nb ? sums[i] : 0;
-    int total;
-    const int inc = block_inclusive_scan(v, ws, &total);
-    if (i < nb) sums[i] = carry + inc - v;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *cnt = carry;
-}
+constexpr int ITEMS = lz77::SCAN_ITEMS;
+constexpr int CHUNK = lz77::SCAN_CHUNK;  // tokens per thread block
 
 __global__ void __launch_bounds__(THREADS) decode_iota_kernel(
     int32_t* __restrict__ ptr, long long n) {
@@ -116,7 +65,7 @@ __global__ void __launch_bounds__(THREADS) decode_init_kernel(
     const int ln = (int)((w >> 16) & 0xFFu);
     const int sz = i < T ? ln + 1 : 0;
     int total;
-    const int inc = block_inclusive_scan(sz, ws, &total);
+    const int inc = lz77::block_inclusive_scan<WARPS>(sz, ws, &total);
     const long long start = run + inc - sz;
     run += total;
     // this warp's 32 tokens cover output positions [g0, g1); a dead token
@@ -186,15 +135,10 @@ extern "C" int lz77_walk_decode(
     const void* toks, int T, void* buf, int wp, long long out_cap, void* cnt,
     void* sums, void* ptr, void* flags, int rounds, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  const int nb = (int)(((long long)T + CHUNK - 1) / CHUNK);
-  if (nb > 0) {
-    decode_sums_kernel<<<nb, THREADS, 0, stream>>>(
-        (const int32_t*)toks, T, (int32_t*)sums);
-    LZ77_CHECK_LAUNCH();
-  }
-  decode_scan_kernel<<<1, THREADS, 0, stream>>>(
-      (int32_t*)sums, nb, (int32_t*)cnt);
-  LZ77_CHECK_LAUNCH();
+  int nb;
+  if (cudaError_t e = lz77::launch_token_starts(
+          (const int32_t*)toks, T, (int32_t*)sums, (int32_t*)cnt, stream, &nb))
+    return (int)e;
   if (nb == 0 || out_cap <= 0) return 0;
   const long long n = (long long)wp + out_cap;
   const unsigned all_blocks = (unsigned)((n + THREADS - 1) / THREADS);

@@ -33,17 +33,26 @@ the tokens in order, lanes sharing one copy — was right but took a round
 trip to L2 per copy token; its time stands in PERF.md.
 
 Packed variant — ``csrc/decode_walk_packed.cu`` replaces the TPU kernel
-``lz77_tpu/ops/decode_walk.py::_kernel_packed``: the same replay with four
-decoded bytes per int32 ring word, word-wide copies through a funnel shift,
-packed int32 output and no priming.  That kernel is the serial replay at
-word granularity and the port keeps it serial, because that is what it
-computes: one thread block, the ring in shared memory (``2^(off_bits+1)``
-bytes, at least 8 KiB, 128 KiB at sb=65535), one warp replaying the tokens
-in order with up to ``off/4`` lanes copying words at once, the whole block
-writing finished ring words out.  It is bound by the latency of its serial
-chain, far from its contract's bytes; what it has that the parallel kernel
-lacks is memory (no 4-byte pointer per output byte).  The parallel kernel
-stays the decode backend; this one is reached through
+``lz77_tpu/ops/decode_walk.py::_kernel_packed``: the same replay with packed
+int32 output (four bytes a word, little endian) and no priming.  That kernel
+replays the tokens one after another through a ring of packed words; the
+port's contract is the same and its mechanism is not.  A serial replay is
+bound by the latency of one chain of dependent operations on one warp of
+one SM (the port's first form of this kernel was that, and its time stands
+in PERF.md); the parallel kernel above is bound by the 4-byte parent pointer
+per output byte that it reads and writes in device memory every round.  The
+packed kernel keeps the parallel replay and moves the pointers into shared
+memory: one thread block per tile of ``TILE_WORDS`` output words builds the
+tile's parent pointers there (relative to the tile; a source before the tile
+is an *external* root), collapses them by pointer jumping without leaving
+the SM, all tiles at once, and only then takes its external bytes from the
+output words the earlier tiles have stored, in tile order.  Only the last
+``2^off_bits + 256`` bytes before a tile can be its source, so a tile
+stores that tail first and raises a flag, and the tile after it waits for
+nothing else; a tail that needs nothing from outside does not wait at all.
+Device-memory scratch is the per-block token sums, one flag per tile and a
+ticket: nothing that grows with the output bytes.  The parallel kernel stays
+the decode backend; this one is reached through
 :func:`decode_tokens_walk_packed`, as in the JAX package.
 """
 
@@ -55,7 +64,7 @@ import torch
 from .. import _build
 from .. import device as device_lib
 
-_TOKENS_PER_BLOCK = 2048  # CHUNK of csrc/decode_walk.cu
+_TOKENS_PER_BLOCK = 2048  # SCAN_CHUNK of csrc/decode_common.cuh
 
 
 def pack_token_words(
@@ -73,28 +82,24 @@ def pack_token_words(
     return w.astype(np.uint32).view(np.int32)
 
 
-def walk_decode_plain(
-    toks: torch.Tensor,
-    total: int,
-    *,
-    out_cap: int,
-    win: torch.Tensor | None = None,
-    wp: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: positions by cumsum, copies by pointer doubling.
+def _replay_pointers(toks, total: int, out_cap: int, win, wp: int):
+    """Values and parent pointers of the replay over ``wp`` history bytes
+    and ``out_cap`` output bytes -> (val uint8, ptr int64, cnt int32 (1,)).
 
-    Every output byte is a literal (value known) or a copy of the byte
-    ``off`` positions earlier, a parent pointer; doubling collapses each
-    chain to its literal (or history) root, overlapping copies included.
-    A pointer that leaves the buffer, or a copy with ``off == 0``, reads 0.
+    ``val`` holds the history and every literal, 0 elsewhere.  ``ptr[j]`` is
+    ``j`` for a root (history, literal, a byte no token covers, a copy with
+    ``off == 0`` or a source before the history: those read 0) and for copy
+    byte ``q`` of a token the parent ``start - off + (q mod off)``, which
+    lies before the token, so an overlapping copy costs no hop.
     """
     dev = toks.device
     W = wp + out_cap
     val = torch.zeros(W, dtype=torch.uint8, device=dev)
     if wp:
         val[:wp] = win
+    pos = torch.arange(W, dtype=torch.int64, device=dev)
     if total == 0:
-        return val[wp:], torch.zeros(1, dtype=torch.int32, device=dev)
+        return val, pos, torch.zeros(1, dtype=torch.int32, device=dev)
     w = toks[:total].to(torch.int64)
     off = w & 0xFFFF
     ln = (w >> 16) & 0xFF
@@ -108,20 +113,38 @@ def walk_decode_plain(
     ind = torch.zeros(W + 1, dtype=torch.int64, device=dev)
     ind[(wp + starts)[fits]] = 1
     tok_of = (torch.cumsum(ind[:W], dim=0) - 1).clamp(0, total - 1)
-    pos = torch.arange(W, dtype=torch.int64, device=dev)
-    delta = pos - (wp + starts[tok_of])
+    start = wp + starts[tok_of]
+    delta = pos - start
+    o = off[tok_of]
     done = wp + torch.where(fits, ends, 0).max()
-    fixed = (pos < wp) | (pos >= done) | (delta == ln[tok_of])
-    ptr = torch.where(fixed, pos, pos - off[tok_of])
-    # a source before the history reads 0: point it at itself (copy
-    # positions hold 0 in val)
-    ptr = torch.where(ptr < 0, pos, ptr)
+    fixed = (pos < wp) | (pos >= done) | (delta == ln[tok_of]) | (o == 0)
+    ptr = start - o + delta % o.clamp(min=1)
+    ptr = torch.where(fixed | (ptr < 0), pos, ptr)
+    return val, ptr, ends[-1].to(torch.int32).reshape(1)
+
+
+def walk_decode_plain(
+    toks: torch.Tensor,
+    total: int,
+    *,
+    out_cap: int,
+    win: torch.Tensor | None = None,
+    wp: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: positions by cumsum, copies by pointer doubling.
+
+    Every output byte is a literal (value known) or a copy of an earlier
+    byte, a parent pointer (:func:`_replay_pointers`); doubling collapses
+    each chain to its literal (or history) root, overlapping copies
+    included.  A pointer that leaves the buffer, or a copy with
+    ``off == 0``, reads 0.
+    """
+    val, ptr, cnt = _replay_pointers(toks, total, out_cap, win, wp)
     while True:
         nxt_ptr = ptr[ptr]
         if torch.equal(nxt_ptr, ptr):
             break
         ptr = nxt_ptr
-    cnt = ends[-1].to(torch.int32).reshape(1)
     return val[ptr][wp:], cnt
 
 
@@ -138,7 +161,8 @@ def walk_decode(
     ``bytes`` is (out_cap,) uint8; ``out_len`` a (1,) int32 tensor holding
     the cursor after the last token.  CUDA tensors launch the kernel (or
     raise); CPU tensors run the plain version.  ``walk_decode.launches``
-    counts launches.
+    counts launches; ``walk_decode.scratch_bytes`` is the device-memory
+    scratch of the last one.
     """
     if toks.dtype != torch.int32 or toks.dim() != 1 \
             or not toks.is_contiguous():
@@ -180,10 +204,13 @@ def walk_decode(
         )
     _build.check(err, "walk_decode_kernel")
     walk_decode.launches += 1
+    walk_decode.scratch_bytes = 4 * (sums.numel() + ptr.numel()
+                                     + flags.numel())
     return buf[wp:], cnt
 
 
 walk_decode.launches = 0
+walk_decode.scratch_bytes = 0
 
 
 def _checked_token_words(off, ln, nxt, off_bits: int, dev):
@@ -224,14 +251,47 @@ def decode_tokens_walk(
     return out.cpu().numpy().tobytes()
 
 
+TILE_WORDS = 12288  # output words per thread block of the packed kernel
+
+
 def walk_decode_packed_plain(
-    toks: torch.Tensor, total: int, *, out_cap_words: int
+    toks: torch.Tensor, total: int, *, out_cap_words: int,
+    tile_words: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the packed replay: the pointer-doubling
-    replay of :func:`walk_decode_plain`, zero-padded to whole words and
-    viewed as little-endian int32."""
-    out, cnt = walk_decode_plain(toks, total, out_cap=4 * out_cap_words)
-    return out.contiguous().view(torch.int32), cnt
+    """Plain PyTorch version of the packed replay, zero-padded to whole
+    words and viewed as little-endian int32.
+
+    ``tile_words=None``: the pointer-doubling replay of
+    :func:`walk_decode_plain` over the whole output.  With ``tile_words``
+    it follows the kernel's decomposition: pointer doubling confined to
+    tiles of that many words (a parent before its tile makes the byte an
+    external root of the tile), all tiles at once, then tile by tile in
+    order every byte takes its root's value, or for an external root the
+    byte that an earlier tile has already written.
+    """
+    if tile_words is None:
+        out, cnt = walk_decode_plain(toks, total, out_cap=4 * out_cap_words)
+        return out.contiguous().view(torch.int32), cnt
+    if tile_words < 1:
+        raise ValueError(f"tile_words {tile_words} must be positive")
+    n = 4 * out_cap_words
+    tb = 4 * tile_words
+    val, ptr, cnt = _replay_pointers(toks, total, n, None, 0)
+    pos = torch.arange(n, dtype=torch.int64, device=toks.device)
+    inside = ptr >= pos // tb * tb  # a root points at itself: inside
+    loc = torch.where(inside, ptr, pos)
+    while True:  # every chain ends at a root of its own tile
+        nxt_loc = loc[loc]
+        if torch.equal(nxt_loc, loc):
+            break
+        loc = nxt_loc
+    external = ~inside[loc]
+    src = torch.where(external, ptr[loc], loc)
+    out = val.clone()
+    for t0 in range(0, n, tb):  # the hand-off: earlier tiles are final
+        sl = slice(t0, min(t0 + tb, n))
+        out[sl] = torch.where(external[sl], out[src[sl]], val[src[sl]])
+    return out.view(torch.int32), cnt
 
 
 def walk_decode_packed(
@@ -245,9 +305,12 @@ def walk_decode_packed(
 
     ``packed_words`` is (out_cap_words,) int32 holding the decoded bytes
     four to a word, little endian, zero past the count; ``out_len_bytes``
-    a (1,) int32 tensor.  No priming window.  CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version.
-    ``walk_decode_packed.launches`` counts launches.
+    a (1,) int32 tensor.  No priming window.  ``off_bits`` bounds how far
+    before a tile a copy's source may lie.  CUDA tensors launch the kernel
+    (or raise); CPU tensors run the plain version.
+    ``walk_decode_packed.launches`` counts launches and
+    ``walk_decode_packed.scratch_bytes`` is the device-memory scratch of
+    the last one.
     """
     if toks.dtype != torch.int32 or toks.dim() != 1 \
             or not toks.is_contiguous():
@@ -263,20 +326,28 @@ def walk_decode_packed(
                                         out_cap_words=out_cap_words)
     lib = _build.kernels()
     dev = toks.device
-    out = torch.zeros(out_cap_words, dtype=torch.int32, device=dev)
+    # the kernel writes every word, zero past the count
+    out = torch.empty(out_cap_words, dtype=torch.int32, device=dev)
     cnt = torch.empty(1, dtype=torch.int32, device=dev)
+    # scratch: per-block token sums, the tiles' ticket and one flag a tile
+    sums = torch.empty(-(-total // _TOKENS_PER_BLOCK), dtype=torch.int32,
+                       device=dev)
+    sync = torch.zeros(1 + -(-out_cap_words // TILE_WORDS),
+                       dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lz77_walk_decode_packed(
             toks.data_ptr(), total, out.data_ptr(), out_cap_words,
-            cnt.data_ptr(), off_bits,
-            torch.cuda.current_stream().cuda_stream,
+            cnt.data_ptr(), sums.data_ptr(), sync.data_ptr(), off_bits,
+            TILE_WORDS, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "decode_packed_kernel")
     walk_decode_packed.launches += 1
+    walk_decode_packed.scratch_bytes = 4 * (sums.numel() + sync.numel())
     return out, cnt
 
 
 walk_decode_packed.launches = 0
+walk_decode_packed.scratch_bytes = 0
 
 
 def decode_tokens_walk_packed(

@@ -16,15 +16,25 @@ Kernel note — ``csrc/match_chunk.cu::match_chunk_kernel`` replaces the TPU
 kernel ``lz77_tpu/ops/pallas_match.py::_kernel``.  That kernel holds a tile
 in vector memory, tries 128 distances per step as static lane rotations,
 gets run lengths by log2(la) doubling steps and keeps the best key per
-position.  On Hopper a warp shares one position and its 32 lanes take 32
-consecutive distances: a lane finds its run four bytes at a time (two
-shared-memory words funnel-shifted into the unaligned source word, XOR,
-find-first-set), the lanes keep their best key and one warp max picks the
-winner; the chunk loop stops once some lane has reached the position's cap.
-It is bound by operations (up to ``d_limit`` compares per position against
-~1 B read and 8 B written), like the sweep, and covers la 2..255,
-sb 1..65535 and any B: the TPU kernel's ``la <= 128`` and tile-multiple
-limits are gone.  The halo must be ``d_limit`` long, as there.
+position.  On Hopper a warp shares one position and a chunk is 256
+consecutive distances, eight to a lane: the sources of four consecutive
+distances start at four consecutive bytes, one aligned word of the window,
+so one shared-memory load XORed with the position's first byte repeated
+four times has a zero byte for every distance whose first byte matches.  A
+distance can only beat the best run so far if it also matches at index
+``best``, so the word ``best`` bytes further on is XORed with ``x[best]``
+the same way, the two are ORed and one zero-byte test marks the distances
+that pass both filters; ``best`` is the warp's, renewed by one ballot and,
+when some lane improved, one warp max after each chunk.  Only a distance
+the test marks measures its run (four bytes at a time against the
+position's own bytes, which are read once into registers).  The chunk loop
+stops once the best run has reached the position's cap.  The kernel is
+bound by operations (up to ``d_limit`` compares per position against ~1 B
+read and 8 B written), like the sweep, which is why it filters a word at a
+time; it covers la 2..255, sb 1..65535 and any B: the TPU kernel's
+``la <= 128`` and tile-multiple limits are gone.  The halo must be
+``d_limit`` long, as there.  The kernel's key is ``L << 16 | (65535 - d)``,
+the same order without a division.
 """
 
 from __future__ import annotations
@@ -47,6 +57,9 @@ def split_key(key: torch.Tensor, dlim: int):
     return L, torch.where(L > 0, O, 0)
 
 
+CHUNK = 256  # distances a warp tries per step: 32 lanes x two 4-byte words
+
+
 def match_chunk_plain(
     blocks: torch.Tensor,
     halos: torch.Tensor,
@@ -57,11 +70,17 @@ def match_chunk_plain(
     la: int,
     sb: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the key formulation in tensors.
+    """Plain PyTorch version: the kernel's decomposition in tensors.
 
-    Per distance: run lengths by doubling, the key where the distance is
-    allowed (``runs > 0``, ``d <= p + avail``), a running ``maximum`` over
-    keys; (L, O) are split out of the best key at the end.
+    Distances are visited ascending, one tensor pass each.  A position's
+    chunks are those of the kernel: its window is cut on the word grid, so
+    with ``a = (d_limit + p) mod 4`` chunk ``c`` holds the distances
+    ``a + 256c - 3 .. a + 256c + 252``.  Within a chunk only a distance
+    that passes both filters (first byte equal, and the byte at index
+    ``best`` equal to ``x[best]``, ``best`` being the best run *before* the
+    chunk) gives its capped run length (by doubling) and its key; the
+    chunk's largest key is folded into the best one at the chunk's end, and
+    a position whose best run has reached its cap takes no further chunk.
     """
     G, B = blocks.shape
     H = halos.shape[1]
@@ -79,18 +98,30 @@ def match_chunk_plain(
          torch.zeros((G, ext), dtype=torch.uint8, device=dev)], dim=1,
     )
     X = buf[:, H : H + B + ext]
-    best = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    pos64 = pos.to(torch.int64).expand(G, B)
+    phase = 3 - (dlim + pos) % 4  # d + phase is 0 mod CHUNK at a chunk's start
+    best = torch.zeros((G, B), dtype=torch.int32, device=dev)   # key
+    chunk_best = torch.zeros_like(best)
     dmax = min(dlim, int(reach.max())) if G * B else 0
     for d in range(1, dmax + 1):
-        rl = (X == buf[:, H - d : H - d + B + ext]).to(torch.int16)
+        best = torch.where((d + phase) % CHUNK == 0,
+                           torch.maximum(best, chunk_best), best)
+        best_l = (best // (dlim + 2)).to(torch.int64)
+        Y = buf[:, H - d : H - d + B + ext]
+        passed = (
+            (X[:, :B] == Y[:, :B])
+            & (X.gather(1, pos64 + best_l) == Y.gather(1, pos64 + best_l))
+            & (best_l < cap) & (reach >= d)
+        )
+        rl = (X == Y).to(torch.int16)
         m = 1
         while m < depth:
             rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
             m <<= 1
         runs = torch.minimum(rl[:, :B].to(torch.int32), cap)
-        ok = (runs > 0) & (reach >= d)
-        best = torch.maximum(best, torch.where(ok, combine_key(runs, d, dlim), 0))
-    return split_key(best, dlim)
+        chunk_best = torch.maximum(
+            chunk_best, torch.where(passed, combine_key(runs, d, dlim), 0))
+    return split_key(torch.maximum(best, chunk_best), dlim)
 
 
 def match_chunk(

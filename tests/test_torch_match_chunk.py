@@ -64,6 +64,45 @@ def test_chunk_matches_brute(la, sb, rng):
     np.testing.assert_array_equal(got[1], ref[1])
 
 
+# (sb, avail): position 0 reaches exactly dmax = min(d_limit(sb), avail)
+# distances, and the positions after it one more each up to d_limit
+DMAX_CASES = {1: (2, 1), 2: (3, 2), 3: (3, 3), 4: (5, 4), 127: (127, 127),
+              128: (129, 128), 129: (129, 129), 255: (255, 255),
+              256: (257, 256), 257: (257, 257), 4095: (4095, 4095)}
+# la: the cap is la - 1 (254 is the longest the format has)
+CAP_LAS = {1: 2, 3: 4, 4: 5, 15: 16, 254: 255}
+
+
+@pytest.mark.parametrize("cap", sorted(CAP_LAS))
+@pytest.mark.parametrize("dmax", sorted(DMAX_CASES))
+def test_chunk_plain_word_filters_match_brute(dmax, cap, rng):
+    """The plain version follows the kernel: four distances a word cut on
+    the word grid, first-byte and ``best``-byte filters, the best run kept
+    per chunk of 256.  Around every edge of that grouping (distance limits
+    below, at and above a word, a lane's two words and a chunk; caps below,
+    at and above a word and deeper than the words kept in registers) it
+    still gives the brute sweep's tables."""
+    sb, avail = DMAX_CASES[dmax]
+    la = CAP_LAS[cap]
+    p = spec.Params(la=la, sb=sb)
+    assert min(p.d_limit, avail) == dmax and p.len_limit == cap
+    B = 400
+    # few symbols: long runs, many equal-length candidates, ties on distance
+    data = rng.integers(0, 3, p.d_limit + B + cap, dtype=np.uint8)
+    data[p.d_limit + 150 : p.d_limit + 150 + 2 * cap + 9] = 7   # one long run
+    halo = data[: p.d_limit].copy()
+    halo[: p.d_limit - avail] = 0
+    x = data[p.d_limit : p.d_limit + B]
+    right = data[p.d_limit + B :]
+    args = (x, halo, right, np.int32(avail), np.int32(B + cap - 3))
+    ref = _jax(jax.jit(jax_match.find_matches_brute,
+                       static_argnames=("la", "sb")), args, la, sb)
+    got = _port(args, la, sb)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert got[0].max() == cap
+
+
 def test_chunk_matches_the_pallas_kernel_it_replaces(rng):
     """The TPU kernel itself, in interpret mode, at B=2048 tile=1024."""
     la, sb = 4, 129

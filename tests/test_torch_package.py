@@ -178,7 +178,35 @@ def test_every_kernel_source_is_built_and_packaged():
     assert "fused_walk.cu" in on_disk
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "pyproject.toml")) as f:
-        assert 'lz77_tpu_torch = ["csrc/*.cu"]' in f.read()
+        assert 'lz77_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in f.read()
+    # every header a source includes lies beside it
+    for src in on_disk:
+        with open(os.path.join(_build.CSRC, src)) as f:
+            for line in f:
+                if line.startswith('#include "'):
+                    assert os.path.exists(
+                        os.path.join(_build.CSRC, line.split('"')[1]))
+
+
+def test_kernel_tag_follows_headers_too(tmp_path, monkeypatch):
+    """The library's name hashes every file under ``csrc/``: a changed
+    header (which no ``KERNEL_SOURCES`` entry names) gives a new tag, so a
+    library built from the old header is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    assert "decode_common.cuh" in headers
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert _build.kernel_tag() != ""
+    before = _build.kernel_tag()
+    assert before == _build.kernel_tag()
+    with open(csrc / "decode_common.cuh", "ab") as f:
+        f.write(b"\n// changed\n")
+    after = _build.kernel_tag()
+    assert after != before
+    with open(csrc / "match.cu", "ab") as f:
+        f.write(b"\n")
+    assert _build.kernel_tag() not in (before, after)
 
 
 def test_convert_params_and_batch():
