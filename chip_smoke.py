@@ -33,9 +33,16 @@ card on the first 8 MiB and are held against the same references.
 The packed-word decode is also held against the walk decode's bytes and the
 input on streams several of its tiles long (tokens across tile boundaries,
 sources more than a tile back, every length residue mod 4, outputs cut
-short) and timed on 8 MiB of zeros and of random bytes; the chunk matcher is
-also held against the sweep's tables and timed on a zeros batch, a random
-batch and one 1 MiB block at la=255, sb=65535.
+short) and timed on 8 MiB of zeros and of random bytes.  The two matchers
+(the sweep and the chunk matcher) are held against each other's tables on
+every case, the sweep also on its word grid: block lengths and starts at
+every residue mod 4, the stream start (dmax in mid-word), valid_ext inside
+the last block, la 2..255 against sb 3..65535, zeros, an off == 1 run and
+random bytes; both are timed on a zeros batch, a random batch and one 1 MiB
+block at la=255, sb=65535.  The merged sweep+walk kernel is also held on
+blocks of 4095, 4096 and 4097 bytes and blocks shorter than la, and run and
+timed on the text batch and a zeros batch at tiles of 512 to 8192
+positions (``ms_by_tile``).
 
 Each phase prints one JSON line; any failed check raises and the exit code
 is non-zero.  Without a CUDA device it exits non-zero at once: nothing here
@@ -166,8 +173,8 @@ def batch_on_card(x: np.ndarray, g0: int, G: int, B: int, p: spec.Params):
 def check_match(name, x, g0, G, B, p, reps=0, kernel="match_kernel"):
     """Kernel vs plain on one batch; returns the record (timed if reps).
 
-    ``kernel``: "match_kernel" (K1) or "match_chunk_kernel" (K4, which is
-    also held against K1's tables on the same batch)."""
+    ``kernel``: "match_kernel" (K1) or "match_chunk_kernel" (K4); each is
+    also held against the other's tables on the same batch."""
     fn, plain = {
         "match_kernel": (match.match_sweep, match.match_sweep_plain),
         "match_chunk_kernel": (match_chunk.match_chunk,
@@ -180,10 +187,11 @@ def check_match(name, x, g0, G, B, p, reps=0, kernel="match_kernel"):
     err = max(max_err(L, Lp), max_err(O, Op))
     rec = {"kernel": kernel, "case": name, "la": p.la, "sb": p.sb,
            "shape": [len(args[0]), B], "max_abs_err": err}
-    if kernel == "match_chunk_kernel":
-        L1, O1 = match.match_sweep(*args, la=p.la, sb=p.sb)
-        rec["max_abs_err_vs_match_kernel"] = max(max_err(L, L1), max_err(O, O1))
-        err = max(err, rec["max_abs_err_vs_match_kernel"])
+    other = {"match_kernel": "match_chunk_kernel",
+             "match_chunk_kernel": "match_kernel"}[kernel]
+    L1, O1 = WRAPPERS[other](*args, la=p.la, sb=p.sb)
+    rec[f"max_abs_err_vs_{other}"] = max(max_err(L, L1), max_err(O, O1))
+    err = max(err, rec[f"max_abs_err_vs_{other}"])
     if err != 0:
         raise AssertionError(f"{kernel} disagrees: {rec}")
     if reps:
@@ -203,6 +211,9 @@ def check_match(name, x, g0, G, B, p, reps=0, kernel="match_kernel"):
             exhaustive_compares=int(dmax.sum()),
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             ops_ms=ops / INT_OPS_PER_S * 1e3,
+            # a second reading, not the bound: four compares a lane
+            # operation, as one word-wide XOR tests four distances
+            ops_ms_four_a_lane_op=ops / 4 / INT_OPS_PER_S * 1e3,
         )
     return rec, (args, L, O)
 
@@ -624,6 +635,27 @@ def main() -> int:
                           small])
     rec, _ = check_match("far_offsets", far, 1, 2, 30000, spec.Params(129, 65535))
     checks.append(rec)
+    # K1's word grid: block lengths at every residue mod 4 (so block starts
+    # at every residue too) from the stream start (avail 0, then avail <
+    # d_limit: dmax in mid-word) to a last block that ends the data
+    # (valid_ext inside it); la 2, 4, 255 against sb 3, 4095, 4096, 65535;
+    # zeros, an off == 1 run and random bytes.  Each case also against K4.
+    mixed = np.concatenate([small, make_text(rng, 3000)])
+    for B in (1800, 1801, 1802, 1803):
+        rec, _ = check_match(f"phase_B{B}", mixed, 0, 5, B, p0)
+        checks.append(rec)
+    for la, sb in ((2, 3), (2, 65535), (4, 4095), (4, 4096), (255, 3),
+                   (255, 4095), (255, 65535), (15, 3)):
+        rec, _ = check_match(f"la{la}_sb{sb}", mixed, 0, 5, 1801,
+                             spec.Params(la, sb))
+        checks.append(rec)
+    run1 = np.concatenate([make_text(rng, 1000), np.full(3000, 113, np.uint8),
+                           make_text(rng, 1000)])
+    for name, xs in (("zeros", np.zeros(8000, np.uint8)), ("off1_run", run1),
+                     ("random", rng.integers(0, 256, 8000, dtype=np.uint8))):
+        for p in (p0, spec.Params(255, 65535)):
+            rec, _ = check_match(name, xs, 0, 5, 1801, p)
+            checks.append(rec)
 
     # K4 small, against its plain version and against K1: the same cases,
     # the deepest la with the widest window, the shallowest la, a block
@@ -640,6 +672,7 @@ def main() -> int:
                          spec.Params(255, 65535), kernel="match_chunk_kernel")
     checks.append(rec)
 
+    tiles_src = make_text(rng, 13000)
     # K5 small, against its plain version and against K1 + K2 on the card:
     # the matchers' cases, blocks that are no multiple of the tile, blocks
     # shorter than la (tiles jumped over whole), a ragged valid_total with a
@@ -660,6 +693,14 @@ def main() -> int:
         ("zeros", np.zeros(5000, np.uint8), 0, 3, 1800, p0, 0, 0),
         ("random", rng.integers(0, 256, 5000, dtype=np.uint8), 0, 3, 1800,
          p0, 0, 0),
+        # blocks around one tile: one position short, exact, one over
+        ("blocks_4095", tiles_src, 0, 3, 4095, p0, 2, 0),
+        ("blocks_4096", tiles_src, 0, 3, 4096, p0, 0, 0),
+        ("blocks_4097", tiles_src, 0, 3, 4097, p0, 9, 1000),
+        # blocks shorter than la, each a short tile of its own
+        ("short_blocks_la15", small, 0, 40, 13, p0, 11, 0),
+        ("short_blocks_la255", tiles_src, 1, 30, 200, spec.Params(255, 4095),
+         254, 77),
     ):
         rec, _ = check_sweepwalk(name, xs, g0, G5, B5, p, entry, cut)
         checks.append(rec)
@@ -757,8 +798,9 @@ def main() -> int:
             raise AssertionError(f"match_chunk_kernel != match_kernel: {name}")
         rec4[f"{name}_ms"] = time_ms(
             lambda: match_chunk.match_chunk(*args, la=pk.la, sb=pk.sb), 3)
-        rec4[f"{name}_match_kernel_ms"] = time_ms(
+        rec1[f"{name}_ms"] = rec4[f"{name}_match_kernel_ms"] = time_ms(
             lambda: match.match_sweep(*args, la=pk.la, sb=pk.sb), 3)
+        rec1[f"{name}_match_chunk_kernel_ms"] = rec4[f"{name}_ms"]
         del args, L4, O4, L1, O1
     # K5 on the same text batch, then its time alone on a batch of zeros
     # (the sweep exits at distance 1: the hand-off chain is what is left)
@@ -767,7 +809,33 @@ def main() -> int:
         "main_path_batch", x, G, G, B, p0, reps=5)
     rec5["plain_ms"] = time_ms(lambda: fused_walk.sweep_walk_plain(
         *args, e5, vt5, la=p0.la, sb=p0.sb), 1)
-    del args
+    # the text batch and the zeros batch at other tile sizes (a hop of the
+    # hand-off chain a tile); each result held against the module's own
+    # tile's, whose size is put back
+    zargs, zvt = batch_on_card(zeros_batch, 0, G, B, p0)
+    tile_cases = (("text", args, vt5), ("zeros", zargs, zvt))
+    wants = [fused_walk.sweep_walk(*ta, e5, tvt, la=p0.la, sb=p0.sb)
+             for _, ta, tvt in tile_cases]
+    own_tile = fused_walk.TILE
+    rec5["tile"] = own_tile
+    rec5["ms_by_tile"] = {}
+    try:
+        for tile in (512, 1024, 2048, 4096, 8192):
+            fused_walk.TILE = tile
+            row = {}
+            for (name, ta, tvt), want in zip(tile_cases, wants):
+                got = fused_walk.sweep_walk(*ta, e5, tvt, la=p0.la, sb=p0.sb)
+                c = int(want[1])
+                if max(max_err(got[1], want[1]), max_err(got[2], want[2]),
+                       max_err(got[0][:c], want[0][:c])) != 0:
+                    raise AssertionError(f"sweepwalk_kernel at tile {tile} "
+                                         f"disagrees on {name}")
+                row[f"{name}_ms"] = time_ms(lambda: fused_walk.sweep_walk(
+                    *ta, e5, tvt, la=p0.la, sb=p0.sb), 3)
+            rec5["ms_by_tile"][tile] = row
+    finally:
+        fused_walk.TILE = own_tile
+    del args, zargs, tile_cases, wants
     for name, xs in (("zeros", zeros_batch), ("random", random_batch)):
         r, _ = check_sweepwalk(f"main_shape_{name}", xs, 0, G, B, p0, reps=5)
         rec5[f"{name}_ms"] = r["ms"]

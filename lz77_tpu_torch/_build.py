@@ -50,8 +50,8 @@ _KERNEL_ARGTYPES = {
     # stream
     "lz77_walk_decode_packed": [_P, _I, _P, _L, _P, _P, _P, _I, _I, _P],
     # blocks, halos, rights, avails, valid_exts, entry, sync, tokens, count,
-    # exit, G, B, dlim, depth, la, valid_total, n_tiles, ob, lb, stream
-    "lz77_sweepwalk": [_P] * 10 + [_I] * 9 + [_P],
+    # exit, G, B, dlim, depth, la, valid_total, tile, n_tiles, ob, lb, stream
+    "lz77_sweepwalk": [_P] * 10 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

@@ -3,18 +3,33 @@
 // Replaces the TPU kernel lz77_tpu/ops/pallas_bitplane.py::_kernel.  Same
 // contract as ops/match.py::find_matches; byte-domain distance sweep.
 //
+// What bounds it: operations, not bytes.  A position reads about one byte
+// and writes eight, but is compared against up to d_limit distances, so the
+// kernel is bound by issued instructions and the shared-memory pipe.  The
+// design spends as few of both as it can a distance, and keeps one position
+// a thread so that a thread stops the moment its own run reaches the cap
+// (distance 1 on a run of zeros).
+//
 // One thread block handles TILE consecutive positions of one input block g,
 // one thread per position.  The tile, its d_limit-byte window and its
 // (la-1)-byte lookahead are staged in dynamic shared memory from the three
-// per-block arrays (halo | block | right extension), so the sweep's loads
-// are shared-memory byte loads.  A thread walks distances 1..min(d_limit,
-// p + avail) in ascending order, keeps strictly longer runs (so the smallest
-// distance wins ties) and stops as soon as its cap is reached.  A distance
-// can only beat the current best if it matches both the first byte and the
-// byte at index `best`, so those two are tested before the run loop.
+// per-block arrays (halo | block | right extension), plus zeroed slack.  A
+// thread then runs match_common.cuh's sweep_position: four distances a step
+// from one aligned window word, XORed with the position's first byte
+// repeated four times and ORed with the same test at index `best` (the
+// second filter, whose unaligned word slides down one aligned word a step);
+// one zero-byte test marks the distances that pass both, and only those
+// measure their run, four bytes at a time, nearest first.  Eight steps
+// share one test and one branch.  A step costs two 32-bit shared-memory
+// loads and a handful of integer instructions where a distance at a time
+// took eight byte loads and some thirty-four instructions for the same
+// four distances.  A warp's 32 positions read 8 or 9 consecutive words a
+// step: a broadcast, no bank conflict.  Results are written coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "match_common.cuh"
 
 namespace {
 
@@ -29,53 +44,25 @@ __global__ void __launch_bounds__(TILE) match_kernel(
     int32_t* __restrict__ L,                // (G, B)
     int32_t* __restrict__ O,                // (G, B)
     int B, int dlim, int depth) {
-  extern __shared__ uint8_t s[];
+  extern __shared__ uint32_t sw[];
   const int g = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
-  // s[i] holds block coordinate t0 - dlim + i, for i in [0, span)
-  const int span = dlim + TILE + depth;
-  const uint8_t* blk = blocks + (size_t)g * B;
-  const uint8_t* hal = halos + (size_t)g * dlim;
-  const uint8_t* rgt = rights + (size_t)g * depth;
-  for (int i = threadIdx.x; i < span; i += TILE) {
-    const int j = t0 - dlim + i;
-    uint8_t v = 0;
-    if (j < 0) {
-      v = hal[dlim + j];  // j >= -dlim because t0 >= 0
-    } else if (j < B) {
-      v = blk[j];
-    } else if (j < B + depth) {
-      v = rgt[j - B];
-    }
-    s[i] = v;
-  }
+  // byte i of sw holds block coordinate t0 - dlim + i
+  lz77::stage_window(reinterpret_cast<uint8_t*>(sw), blocks + (size_t)g * B,
+                     halos + (size_t)g * dlim, rights + (size_t)g * depth, t0,
+                     TILE, B, dlim, depth, TILE);
   __syncthreads();
 
   const int p = t0 + threadIdx.x;
   if (p >= B) return;
   const int cap = min(depth, valid_exts[g] - p - 1);
-  int best = 0, best_o = 0;
+  int2 r = make_int2(0, 0);
   if (cap > 0) {
-    const int dmax = min(dlim, p + avails[g]);
-    const uint8_t* x = s + dlim + threadIdx.x;  // x[i] = byte at p + i
-    const uint8_t c0 = x[0];
-    uint8_t cb = c0;  // x[best]
-    for (int d = 1; d <= dmax; ++d) {
-      const uint8_t* y = x - d;
-      if (y[0] == c0 && y[best] == cb) {
-        int r = 1;
-        while (r < cap && y[r] == x[r]) ++r;
-        if (r > best) {
-          best = r;
-          best_o = d;
-          if (best == cap) break;  // saturated: nothing can be longer
-          cb = x[best];
-        }
-      }
-    }
+    r = lz77::sweep_position(sw, dlim + threadIdx.x, cap,
+                             min(dlim, p + avails[g]));
   }
-  L[(size_t)g * B + p] = best;
-  O[(size_t)g * B + p] = best_o;
+  L[(size_t)g * B + p] = r.x;
+  O[(size_t)g * B + p] = r.y;
 }
 
 }  // namespace
@@ -85,7 +72,7 @@ extern "C" int lz77_match(
     const void* avails, const void* valid_exts, void* L, void* O,
     int G, int B, int dlim, int depth, void* stream) {
   if (G <= 0 || B <= 0) return 0;
-  const size_t smem = (size_t)dlim + TILE + depth;
+  const size_t smem = lz77::staged_bytes(dlim, TILE, depth);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

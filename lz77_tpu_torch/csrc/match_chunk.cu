@@ -14,8 +14,10 @@
 //
 // One thread block handles TILE consecutive positions of one input block g.
 // The tile, its d_limit-byte window and its (la-1)-byte lookahead are staged
-// in dynamic shared memory exactly as in match.cu (plus zeroed slack, so the
-// word-wide loads below may run a few bytes past the last real byte).  Each
+// in dynamic shared memory by match_common.cuh's stage_window, as in
+// match.cu (plus zeroed slack, so the word-wide loads below may run a few
+// bytes past the last real byte); load4, zero_bytes and run_length are that
+// header's too.  Each
 // warp takes TILE / WARPS positions in turn.  For a position p:
 //   * its own bytes x[p ..] are the same for every lane and every chunk:
 //     the first 16 are read once into registers, deeper ones (la > 17) stay
@@ -50,46 +52,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "match_common.cuh"
+
 namespace {
+
+using lz77::load4;
+using lz77::run_length;
+using lz77::XREG;
+using lz77::zero_bytes;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 512;
 constexpr int PER_WARP = TILE / WARPS;  // 64: two rounds of 32 positions
-constexpr int SLACK = 8;                // zero bytes after the staged span
-constexpr int XREG = 4;                 // words of a position kept in registers
-
-// Four bytes starting at byte index i >= 0 of the 4-aligned shared array,
-// little endian; reads the aligned word holding byte i and the next one.
-__device__ __forceinline__ uint32_t load4(const uint32_t* sw, int i) {
-  return __funnelshift_r(sw[i >> 2], sw[(i >> 2) + 1], (i & 3) * 8);
-}
-
-// 0x80 in every byte of the result whose byte of z is zero, 0 elsewhere.
-__device__ __forceinline__ uint32_t zero_bytes(uint32_t z) {
-  return ~(((z & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | z | 0x7F7F7F7Fu);
-}
-
-// Length of the common prefix of the position's bytes (byte index xi; the
-// first 4 * XREG of them are in X) and the bytes at index src, at most cap.
-__device__ __forceinline__ int run_length(const uint32_t* sw,
-                                          const uint32_t (&X)[XREG], int xi,
-                                          int src, int cap) {
-#pragma unroll
-  for (int q = 0; q < XREG; ++q) {
-    if (4 * q < cap) {
-      const uint32_t diff = X[q] ^ load4(sw, src + 4 * q);
-      if (diff) return min(cap, 4 * q + ((__ffs(diff) - 1) >> 3));
-    }
-  }
-  for (int i = 4 * XREG; i < cap; i += 4) {
-    const uint32_t diff = load4(sw, xi + i) ^ load4(sw, src + i);
-    if (diff) return min(cap, i + ((__ffs(diff) - 1) >> 3));
-  }
-  return cap;
-}
-
 __global__ void __launch_bounds__(THREADS) match_chunk_kernel(
     const uint8_t* __restrict__ blocks,     // (G, B)
     const uint8_t* __restrict__ halos,      // (G, dlim), tail-aligned
@@ -103,26 +79,10 @@ __global__ void __launch_bounds__(THREADS) match_chunk_kernel(
   uint8_t* s = reinterpret_cast<uint8_t*>(sw);
   const int g = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
-  // s[i] holds block coordinate t0 - dlim + i, for i in [0, span); zeros after
-  const int span = dlim + TILE + depth;
-  const int padded = ((span + 3) & ~3) + SLACK;
-  const uint8_t* blk = blocks + (size_t)g * B;
-  const uint8_t* hal = halos + (size_t)g * dlim;
-  const uint8_t* rgt = rights + (size_t)g * depth;
-  for (int i = threadIdx.x; i < padded; i += THREADS) {
-    const int j = t0 - dlim + i;
-    uint8_t v = 0;
-    if (i < span) {
-      if (j < 0) {
-        v = hal[dlim + j];  // j >= -dlim because t0 >= 0
-      } else if (j < B) {
-        v = blk[j];
-      } else if (j < B + depth) {
-        v = rgt[j - B];
-      }
-    }
-    s[i] = v;
-  }
+  // s[i] holds block coordinate t0 - dlim + i, then zeros
+  lz77::stage_window(s, blocks + (size_t)g * B, halos + (size_t)g * dlim,
+                     rights + (size_t)g * depth, t0, TILE, B, dlim, depth,
+                     THREADS);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -216,8 +176,7 @@ extern "C" int lz77_match_chunk(
     const void* avails, const void* valid_exts, void* L, void* O,
     int G, int B, int dlim, int depth, void* stream) {
   if (G <= 0 || B <= 0) return 0;
-  const size_t span = (size_t)dlim + TILE + depth;
-  const size_t smem = ((span + 3) & ~(size_t)3) + SLACK;
+  const size_t smem = lz77::staged_bytes(dlim, TILE, depth);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         match_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

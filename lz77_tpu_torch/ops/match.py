@@ -17,18 +17,26 @@ exceeding B.  Per-position results are therefore block-size-invariant.
 Kernel note — ``csrc/match.cu::match_kernel`` replaces the TPU kernel
 ``lz77_tpu/ops/pallas_bitplane.py::_kernel`` (the bit-sliced distance sweep).
 The TPU form exists because that machine compares 32 positions per word op
-and has no cheap byte addressing; Hopper has byte loads from shared memory
-and independent threads, so the kernel is the byte-domain sweep itself: one
-thread per position, distances ascending, strict ``>`` (smallest distance
-wins ties), early exit once the position's cap is reached.  It is bound by
-operations, not bytes: it reads ~1 B and writes 8 B per input byte, but does
-up to ``d_limit`` first-byte compares per position.  The design keeps the
-tile plus its whole window in shared memory (dynamic, up to ~66 KB at
-sb=65535) so every compare is a shared-memory byte load, and filters each
-distance on two bytes (the first and the one a longer match must also hold)
-before the run loop, which keeps divergent run loops rare.  It covers
-la 2..255 and sb 1..65535 itself; there is no second formulation to give way
-to.
+and has no cheap byte addressing.  On Hopper the kernel is the sweep itself:
+one thread per position, distances ascending, strict ``>`` (smallest
+distance wins ties), early exit once the position's cap is reached, so a
+thread on a run of zeros stops at distance 1.  It is bound by operations,
+not bytes: it reads ~1 B and writes 8 B per input byte, but does up to
+``d_limit`` compares per position, so what counts is the instructions and
+shared-memory loads a distance costs.  The tile and its whole window sit in
+shared memory (dynamic, up to ~66 KB at sb=65535), and the sweep
+(``csrc/match_common.cuh::sweep_position``, which K5 runs too) takes four
+distances a step: the sources of four consecutive distances are one aligned
+window word, which XORed with the position's first byte repeated four
+times, ORed with the same test at index ``best`` (the word ``best`` bytes
+further on, which slides down one aligned word a step and so costs one load
+and one funnel shift), gives through one zero-byte test the distances that
+can still beat the best run.  Only those measure their run, four bytes at a
+time, nearest first.  That is about ten instructions and two 32-bit loads
+for four distances, where a distance at a time took some thirty-four and
+eight byte loads.  :func:`match_sweep_words_plain` is the same
+decomposition in tensors.  It covers la 2..255 and sb 1..65535 itself;
+there is no second formulation to give way to.
 """
 
 from __future__ import annotations
@@ -38,6 +46,19 @@ import torch.nn.functional as F
 
 from .. import _build, spec
 from .. import device as device_lib
+
+
+def capped_runs(X: torch.Tensor, Y: torch.Tensor, depth: int,
+                cap: torch.Tensor) -> torch.Tensor:
+    """Run length of X against Y at each of the first ``cap.shape[1]``
+    columns, at most ``cap``; X and Y are (G, B + ext) uint8 with ext >=
+    depth.  By doubling: log2(depth) shifted adds, whatever the depth."""
+    rl = (X == Y).to(torch.int16)
+    m = 1
+    while m < depth:
+        rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
+        m <<= 1
+    return torch.minimum(rl[:, : cap.shape[1]].to(torch.int32), cap)
 
 
 def match_sweep_plain(
@@ -76,15 +97,95 @@ def match_sweep_plain(
     best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
     dmax = min(dlim, int(reach.max())) if G * B else 0
     for d in range(1, dmax + 1):
-        # rl[p] = min(run length at distance d, m) after each doubling step
-        rl = (X == buf[:, H - d : H - d + B + ext]).to(torch.int16)
-        m = 1
-        while m < depth:
-            rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
-            m <<= 1
-        runs = torch.minimum(rl[:, :B].to(torch.int32), cap)
+        runs = capped_runs(X, buf[:, H - d : H - d + B + ext], depth, cap)
         runs = torch.where(reach >= d, runs, -1)
         upd = runs > best_l
+        best_l = torch.where(upd, runs, best_l)
+        best_o = torch.where(upd, d, best_o)
+    return best_l, best_o
+
+
+# Word steps the kernel filters with one best and tests with one branch
+# (``GROUP`` in ``csrc/match_common.cuh``).
+SWEEP_GROUP = 8
+
+
+def match_sweep_words_plain(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version under the kernel's decomposition; same (L, O).
+
+    Position p sits at byte index ``d_limit + p`` of the staged window
+    (modulo the tile, a multiple of 4), so its alignment phase is
+    ``a = (d_limit + p) % 4`` and its word step ``t`` holds the distances
+    ``a + 4t - j``, ``j`` = 3..0.  Steps run from 0 to
+    ``tmax = (dmax + 3 - a) // 4``; step 0 masks its bytes ``j >= a``
+    (distances below 1), step ``tmax`` its bytes ``j < a + 4 tmax - dmax``
+    (beyond dmax), with the kernel's formulas.  Steps 1 onwards go in
+    groups of :data:`SWEEP_GROUP` while a whole group lies before ``tmax``,
+    then one at a time.  Every distance of a group (or lone step) is
+    filtered with the best run current when the group began (first byte,
+    and the byte at index ``best``); the marked ones measure their capped
+    run (by doubling) nearest first and update the best as they go; a
+    position whose best run has reached its cap takes no further distance.
+    One tensor pass per distance, from -3 (step 0's lowest byte) to the
+    last step's highest, so a mask that let a distance outside 1..dmax
+    through would show in the tables.
+    """
+    G, B = blocks.shape
+    H = halos.shape[1]
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    dev = blocks.device
+    ext = 1
+    while ext < depth:
+        ext <<= 1
+    pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
+    dmax = torch.clamp(pos + avails[:, None], max=dlim)
+    a = (dlim + pos) % 4
+    tmax = torch.div(dmax + 3 - a, 4, rounding_mode="floor")
+    lo = a + 4 * tmax - dmax
+    grouped_to = SWEEP_GROUP * torch.div(torch.clamp(tmax - 1, min=0),
+                                         SWEEP_GROUP, rounding_mode="floor")
+    pad = 3  # step 0 reaches 3 bytes past the position, the last 3 before
+    buf = torch.cat(
+        [torch.zeros((G, pad), dtype=torch.uint8, device=dev), halos, blocks,
+         rights, torch.zeros((G, ext + pad), dtype=torch.uint8, device=dev)],
+        dim=1,
+    )
+    X = buf[:, pad + H : pad + H + B + ext]
+    pos64 = pos.to(torch.int64).expand(G, B)
+    best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    step_best = torch.zeros((G, B), dtype=torch.int64, device=dev)
+    d_top = int((a + 4 * tmax).max()) if G * B else -4
+    for d in range(-3, d_top + 1):
+        t4 = d - a + 3  # 4t + 3 - j
+        t = torch.div(t4, 4, rounding_mode="floor")
+        j = a + 4 * t - d
+        in_step = (t4 >= 0) & (t <= tmax)
+        valid = (in_step & ((t > 0) | (j < a)) & ((t < tmax) | (j >= lo))
+                 & (best_l < cap))
+        # the filter's best is renewed at a group's (or lone step's) start
+        grouped = (t >= 1) & (t <= grouped_to)
+        starts = (j == 3) & (~grouped | ((t - 1) % SWEEP_GROUP == 0))
+        step_best = torch.where(in_step & starts, best_l.to(torch.int64),
+                                step_best)
+        Y = buf[:, pad + H - d : pad + H - d + B + ext]
+        passed = (
+            valid & (X[:, :B] == Y[:, :B])
+            & (X.gather(1, pos64 + step_best) == Y.gather(1, pos64 + step_best))
+        )
+        runs = capped_runs(X, Y, depth, cap)
+        upd = passed & (runs > best_l)
         best_l = torch.where(upd, runs, best_l)
         best_o = torch.where(upd, d, best_o)
     return best_l, best_o

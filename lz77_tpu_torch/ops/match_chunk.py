@@ -40,7 +40,6 @@ the same order without a division.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build, spec
 from . import match as match_ops
@@ -113,12 +112,7 @@ def match_chunk_plain(
             & (X.gather(1, pos64 + best_l) == Y.gather(1, pos64 + best_l))
             & (best_l < cap) & (reach >= d)
         )
-        rl = (X == Y).to(torch.int16)
-        m = 1
-        while m < depth:
-            rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
-            m <<= 1
-        runs = torch.minimum(rl[:, :B].to(torch.int32), cap)
+        runs = match_ops.capped_runs(X, Y, depth, cap)
         chunk_best = torch.maximum(
             chunk_best, torch.where(passed, combine_key(runs, d, dlim), 0))
     return split_key(torch.maximum(best, chunk_best), dlim)

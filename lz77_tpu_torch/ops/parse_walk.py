@@ -80,6 +80,21 @@ def token_bytes(tokens: torch.Tensor, nb: int) -> torch.Tensor:
     return tokens.view(torch.uint8).reshape(N, 4)[:, :nb].reshape(N * nb)
 
 
+def token_words_at(lox: torch.Tensor, starts: torch.Tensor, *, ob: int,
+                   lb: int) -> torch.Tensor:
+    """The packed token words ``off | len<<ob | next<<(ob+lb)`` (int32) of
+    the tokens that start at span positions ``starts`` (int64), read from
+    the LOX words; ``next`` is the byte at ``start + len``."""
+    w = lox.to(torch.int64)
+    head = w[starts]
+    ln = (head >> 16) & 0xFF
+    nxt = (w[torch.clamp(starts + ln, max=lox.shape[0] - 1)] >> 24) & 0xFF
+    word = (head & 0xFFFF) | (ln << ob) | (nxt << (ob + lb))
+    # 32-bit token words set the sign bit: fold into int32's range first
+    return torch.where(word >= (1 << 31), word - (1 << 32), word).to(
+        torch.int32)
+
+
 def walk_parse_pack_plain(
     lox: torch.Tensor,
     entry: torch.Tensor,
@@ -99,10 +114,7 @@ def walk_parse_pack_plain(
     n_ext = lox.shape[0]
     N = n_ext - la
     dev = lox.device
-    w = lox.to(torch.int64)
-    ln = (w >> 16) & 0xFF
-    off = w & 0xFFFF
-    byte = (w >> 24) & 0xFF
+    ln = (lox.to(torch.int64) >> 16) & 0xFF
     pos = torch.arange(n_ext, dtype=torch.int64, device=dev)
     J = torch.where(
         pos < valid_total, torch.clamp(pos + ln + 1, max=n_ext - 1), pos
@@ -117,18 +129,10 @@ def walk_parse_pack_plain(
         m *= 2
     starts = S[:N]
     valid = starts < valid_total
-    l = ln[starts]
-    word = (
-        off[starts]
-        | (l << ob)
-        | (byte[torch.clamp(starts + l, max=n_ext - 1)] << (ob + lb))
-    )
-    word = torch.where(valid, word, 0)
-    # 32-bit token words set the sign bit: fold into int32's range first
-    word = torch.where(word >= (1 << 31), word - (1 << 32), word)
+    word = torch.where(valid, token_words_at(lox, starts, ob=ob, lb=lb), 0)
     count = valid.sum().to(torch.int32).reshape(1)
     exit_e = (S[N] - valid_total).to(torch.int32).reshape(1)
-    return word.to(torch.int32), count, exit_e
+    return word, count, exit_e
 
 
 def walk_parse_pack(

@@ -27,7 +27,7 @@ from lz77_tpu.models import fused as jax_fused
 from lz77_tpu.models import spec_np
 from lz77_tpu_torch import convert
 from lz77_tpu_torch.models import fused as torch_fused
-from lz77_tpu_torch.ops import fused_walk
+from lz77_tpu_torch.ops import fused_walk, parse_walk
 
 from conftest import make_text
 from test_fused_walk import _RUNNER
@@ -187,3 +187,75 @@ def test_merged_route_matches_the_pallas_kernel_interpreted(tmp_path, rng):
         parser="merged", device="cpu",
     )
     assert out == op.read_bytes()
+
+
+def _batch(data, p, g0, G, B):
+    x = np.frombuffer(data, np.uint8)
+    n = x.shape[0]
+    arrs = jax_codec._batch_inputs(x, n, g0, G, G, B, p.d_limit, p.len_limit)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs], \
+        min(G * B, n - g0 * B)
+
+
+# (la, sb, B, G, entry, cut): blocks shorter than la (tiles jumped over
+# whole), blocks that are no multiple of any tile, a ragged valid_total
+# (cut bytes off the span) with a nonzero entry
+TILE_CASES = {
+    "short_blocks": (255, 255, 100, 5, 200, 0),
+    "ragged": (15, 31, 701, 2, 5, 333),
+    "la2": (2, 3, 33, 9, 1, 7),
+}
+
+
+@pytest.mark.parametrize("tile", [1, 7, 512, 4096])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_sweep_walk_tiles_plain_equals_plain(case, tile, rng):
+    """The kernel's decomposition (tiles, maps by entry offset, the chain
+    from the batch entry, emit) gives the plain version's tokens, count and
+    exit at any tile size."""
+    la, sb, B, G, entry, cut = TILE_CASES[case]
+    p = spec.Params(la=la, sb=sb)
+    data = make_text(rng, 700) + b"\x00" * 400 + bytes(
+        rng.integers(0, 3, 300, dtype=np.uint8))
+    t, vt = _batch(data, p, 0, G, B)
+    vt -= cut
+    e = torch.tensor([entry], dtype=torch.int32)
+    want = fused_walk.sweep_walk_plain(*t, e, vt, la=la, sb=sb)
+    got = fused_walk.sweep_walk_tiles_plain(*t, e, vt, la=la, sb=sb,
+                                            tile=tile)
+    c = int(want[1])
+    assert c > 0 and [int(got[1]), int(got[2])] == [c, int(want[2])]
+    assert torch.equal(got[0][:c], want[0][:c])
+
+
+@pytest.mark.parametrize("tile", [7, 4096])
+def test_sweep_walk_tiles_plain_chained_against_jax(tile, rng):
+    """Batch by batch, chained by the exit entry, the decomposition gives
+    the JAX package's ``encode_batch_device`` payload, count and entry."""
+    params = spec.Params(la=5, sb=31)
+    data = make_text(rng, 1500) + b"y" * 700 + b"\x00" * 401
+    x = np.frombuffer(data, np.uint8)
+    n, B, G = x.shape[0], 301, 2
+    nb = params.width // 8
+    e_jax = jnp.int32(0)
+    e_port = torch.zeros(1, dtype=torch.int32)
+    entries = []
+    for g0 in range(0, -(-n // B), G):
+        gn = min(G, -(-n // B) - g0)
+        arrs = jax_codec._batch_inputs(x, n, g0, gn, G, B, params.d_limit,
+                                       params.len_limit)
+        vt = min(G * B, n - g0 * B)
+        entries.append(int(e_port))
+        pj, _, tj, e_jax = jax_fused.encode_batch_device(
+            *(jnp.asarray(a) for a in arrs), jnp.int32(vt), e_jax,
+            la=5, sb=31, matcher="chunked", sub_block=256,
+        )
+        tok, cnt, e_port = fused_walk.sweep_walk_tiles_plain(
+            *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs),
+            e_port, vt, la=5, sb=31, tile=tile,
+        )
+        assert int(cnt) == int(tj) and int(e_port) == int(e_jax)
+        k = int(cnt) * nb
+        got = parse_walk.token_bytes(tok, nb)[:k].numpy().tobytes()
+        assert got == np.asarray(pj)[:k].tobytes()
+    assert any(entries)

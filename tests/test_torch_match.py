@@ -6,6 +6,8 @@ The same numpy inputs, made from a seed, go through
 both tables are integers.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 
 from lz77_tpu import spec
 from lz77_tpu.ops import match as jax_match
+from lz77_tpu_torch import _build
 from lz77_tpu_torch.ops import match as torch_match
 
 from conftest import make_text
@@ -116,3 +119,62 @@ def test_find_matches_rejects_wrong_halo():
             np.zeros(8, np.uint8), np.zeros(5, np.uint8),
             np.zeros(14, np.uint8), 0, 8, la=15, sb=100, device="cpu",
         )
+
+
+# (la, sb, start, B): block starts and lengths at every residue mod 4, so
+# every alignment phase of the kernel's word grid appears; starts 0..3 put
+# the stream start (avail 0) and dmax in mid-word; blocks that run past the
+# end of the data have valid_ext inside the block.
+WORD_CASES = [
+    (15, 31, 0, 300), (15, 31, 1, 301), (15, 31, 2, 302), (15, 31, 3, 303),
+    (2, 3, 0, 97), (2, 3, 5, 98), (2, 31, 6, 99),
+    (255, 31, 7, 400), (255, 4096, 401, 399),
+    (15, 4096, 700, 257), (15, 4096, 902, 255),
+    (15, 65535, 2, 301), (255, 65535, 9, 302),
+]
+
+
+@pytest.mark.parametrize("la,sb,start,B", WORD_CASES)
+def test_match_words_plain_against_sweep_and_brute(la, sb, start, B, rng):
+    """``match_sweep_words_plain`` (the kernel's four-distances-a-word
+    decomposition: phases, edge masks, the filter a step, the exit at the
+    cap) gives the sweep's plain version's tables and the JAX package's."""
+    p = spec.Params(la=la, sb=sb)
+    x = _data(rng)
+    args = _block_inputs(x, start, B, p)
+    find = (jax_match.find_matches_chunked if sb > 4096
+            else jax_match.find_matches_brute)
+    ref, _ = _both(args, la, sb, find=find)
+    t = [torch.as_tensor(np.asarray(a))[None] for a in args]
+    got = torch_match.match_sweep_words_plain(*t, la=la, sb=sb)
+    plain = torch_match.match_sweep_plain(*t, la=la, sb=sb)
+    for r, g, q in zip(ref, got, plain):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g[0].numpy(), r)
+        np.testing.assert_array_equal(g.numpy(), q.numpy())
+
+
+def test_match_words_plain_batch_of_phases(rng):
+    """A batch whose blocks start at every residue mod 4 of the stream,
+    with avail from 0 through mid-word to the full halo, on runs (the exit
+    at the cap in the first steps) and text."""
+    p = spec.Params(la=15, sb=31)
+    x = np.concatenate([np.zeros(90, np.uint8), _data(rng)[:400],
+                        np.full(70, 7, np.uint8)])
+    per = [_block_inputs(x, s, 61, p) for s in (0, 1, 2, 3, 33, 70, 140, 499)]
+    batch = [torch.as_tensor(np.stack([b[i] for b in per])) for i in range(5)]
+    got = torch_match.match_sweep_words_plain(*batch, la=15, sb=31)
+    for g, b in enumerate(per):
+        ref, _ = _both(b, 15, 31)
+        np.testing.assert_array_equal(got[0][g].numpy(), ref[0])
+        np.testing.assert_array_equal(got[1][g].numpy(), ref[1])
+
+
+def test_sweep_group_matches_the_kernel_source():
+    """The plain decomposition's group of word steps is the kernel's."""
+    with open(os.path.join(_build.CSRC, "match_common.cuh")) as f:
+        src = f.read()
+    assert f"constexpr int GROUP = {torch_match.SWEEP_GROUP};" in src
+    for name in ("match.cu", "fused_walk.cu", "match_chunk.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "match_common.cuh"' in f.read()

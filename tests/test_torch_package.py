@@ -195,18 +195,17 @@ def test_kernel_tag_follows_headers_too(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
-    assert "decode_common.cuh" in headers
+    assert headers == ["decode_common.cuh", "match_common.cuh"]
+    assert not set(headers) & set(_build.KERNEL_SOURCES)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     assert _build.kernel_tag() != ""
-    before = _build.kernel_tag()
-    assert before == _build.kernel_tag()
-    with open(csrc / "decode_common.cuh", "ab") as f:
-        f.write(b"\n// changed\n")
-    after = _build.kernel_tag()
-    assert after != before
-    with open(csrc / "match.cu", "ab") as f:
-        f.write(b"\n")
-    assert _build.kernel_tag() not in (before, after)
+    seen = [_build.kernel_tag()]
+    assert seen[0] == _build.kernel_tag()
+    for name in (*headers, "match.cu"):
+        with open(csrc / name, "ab") as f:
+            f.write(b"\n// changed\n")
+        assert _build.kernel_tag() not in seen
+        seen.append(_build.kernel_tag())
 
 
 def test_convert_params_and_batch():
