@@ -30,6 +30,18 @@ launch counts set to 0 just before and read just after:
 The plain tensor modules (the scan parser, the chunked decoder) run on the
 card on the first 8 MiB and are held against the same references.
 
+The walk decode is also held against its plain version's tiled
+decomposition on the small cases, and run as the streamed decode runs it:
+3.5 MiB in stages primed with the d_limit bytes before each, at la=15 with
+sb=4095 and sb=65535, stage by stage against the plain version, with a
+corrupt stage that the kernel and the plain version both reject and on which
+``decode_file_device`` raises.  It is timed on the whole stream, on 8 MiB of
+zeros, of random bytes and of text at sb=65535, at tiles of 2048 to 14336
+words (``ms_by_tile_words``), with its scratch and its kernel launches a
+call (``kernels_per_call``, from ``torch.profiler``).  The walk parse+pack
+is held and timed at la 2, 15 and 255 with sub-blocks of one byte, the
+default and 65,535.
+
 The packed-word decode is also held against the walk decode's bytes and the
 input on streams several of its tiles long (tokens across tile boundaries,
 sources more than a tile back, every length residue mod 4, outputs cut
@@ -241,6 +253,9 @@ def check_walk(name, args, L, O, vt, entry, p, sub_block, reps=0):
     if reps:
         nbytes = lox.numel() * 4 + 4 + c * 4 + 8
         rec.update(
+            scratch_bytes=parse_walk.walk_parse_pack.scratch_bytes,
+            kernels_per_call=kernels_per_call(lambda: parse_walk.walk_parse_pack(
+                lox, e, vt, sub_block=sub_block, **kw)),
             ms=time_ms(lambda: parse_walk.walk_parse_pack(
                 lox, e, vt, sub_block=sub_block, **kw), reps),
             plain_ms=time_ms(lambda: parse_walk.walk_parse_pack_plain(
@@ -254,10 +269,42 @@ def check_walk(name, args, L, O, vt, entry, p, sub_block, reps=0):
 
 # ---------------------------------------------------------------- K3 -----
 
+def limits(p: spec.Params) -> dict:
+    """The stream's limits, as the decode paths hand them to K3."""
+    return dict(off_bits=p.off_bits, d_limit=p.d_limit,
+                len_limit=p.len_limit)
+
+
+def kernels_per_call(fn) -> dict:
+    """This package's kernel launches in one call of ``fn``, by name, from
+    ``torch.profiler`` (PyTorch's own kernels, copies and fills left out).
+    A fill on the device opens the profile: its first activities may be
+    lost from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for ev in prof.events():
+        name = ev.name.replace("(anonymous namespace)::", "")
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or "at::" in name or name.startswith("Mem"):
+            continue
+        name = name.split("(")[0].split("::")[-1]
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def check_decode(name, stream: bytes, data: bytes, reps=0, split=None):
     """Kernel vs plain on a stream's tokens; ``split`` decodes the tail of
-    the token list primed with the head's output as history window."""
-    _, off, ln, nxt = bitio.parse_stream(stream)
+    the token list primed with the head's output as history window.  Small
+    cases are also held against the plain version's tiled decomposition."""
+    p, off, ln, nxt = bitio.parse_stream(stream)
     toks = torch.from_numpy(decode_walk.pack_token_words(off, ln, nxt)).cuda()
     T = toks.shape[0]
     win, wp, want = None, 0, data
@@ -265,13 +312,20 @@ def check_decode(name, stream: bytes, data: bytes, reps=0, split=None):
         head = int((ln[:split] + 1).sum())
         win = torch.frombuffer(bytearray(data[:head]), dtype=torch.uint8).cuda()
         wp, toks, T, want = head, toks[split:].contiguous(), T - split, data[head:]
-    kw = dict(out_cap=len(want), win=win, wp=wp)
+    kw = dict(out_cap=len(want), win=win, wp=wp, **limits(p))
     out, cnt = decode_walk.walk_decode(toks, T, **kw)
     outp, cntp = decode_walk.walk_decode_plain(toks, T, **kw)
     torch.cuda.synchronize()
     err = max(max_err(out, outp), max_err(cnt, cntp))
     rec = {"kernel": "walk_decode_kernel", "case": name, "tokens": T,
-           "out_bytes": len(want), "wp": wp, "max_abs_err": err}
+           "out_bytes": len(want), "wp": wp, "off_bits": p.off_bits,
+           "max_abs_err": err}
+    if not reps:
+        outt, cntt = decode_walk.walk_decode_plain(
+            toks, T, **kw, tile_bytes=4 * decode_walk.TILE_WORDS)
+        rec["max_abs_err_vs_tiled_plain"] = max(max_err(out, outt),
+                                                max_err(cnt, cntt))
+        err = max(err, rec["max_abs_err_vs_tiled_plain"])
     if err != 0 or out.cpu().numpy().tobytes() != want:
         raise AssertionError(f"walk_decode_kernel wrong: {rec}")
     if reps:
@@ -283,7 +337,82 @@ def check_decode(name, stream: bytes, data: bytes, reps=0, split=None):
             bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             ops_ms=len(want) / INT_OPS_PER_S * 1e3,  # one move per byte
             scratch_bytes=decode_walk.walk_decode.scratch_bytes,
+            tile_words=decode_walk.TILE_WORDS,
+            kernels_per_call=kernels_per_call(
+                lambda: decode_walk.walk_decode(toks, T, **kw)),
         )
+        rec["ns_per_token"] = rec["ms"] * 1e6 / T
+    return rec, (toks, T, kw)
+
+
+def check_decode_chain(name, data: bytes, p: spec.Params, stage_tokens: int,
+                       corrupt_stage: int, tmp: str, reps=3):
+    """The streamed decode's stages by hand, as ``decode_file_device`` runs
+    them: stages of ``stage_tokens`` tokens, each primed with the last
+    d_limit bytes before it (a device tensor), kernel against the plain
+    version's tiled decomposition stage by stage; the stages' bytes joined
+    equal the input.  Then a token with a length in stage
+    ``corrupt_stage`` gets off == 0: kernel and plain both answer -1 for
+    that stage, and ``codec.decode_file_device`` raises on the stream."""
+    stream = native.encode(data, p)
+    _, off, ln, nxt = bitio.parse_stream(stream)
+    words = torch.from_numpy(decode_walk.pack_token_words(off, ln, nxt)).cuda()
+    T = words.shape[0]
+    ends = np.cumsum(ln.astype(np.int64) + 1)
+    bounds = list(range(0, T, stage_tokens)) + [T]
+
+    def run(toks, check=False, stop=None):
+        window, outs, err = None, [], 0
+        for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
+            n_out = int(ends[b - 1] - (ends[a - 1] if a else 0))
+            wp = 0 if window is None else int(window.shape[0])
+            kw = dict(out_cap=n_out, win=window, wp=wp, **limits(p))
+            out, cnt = decode_walk.walk_decode(toks[a:b], b - a, **kw)
+            if check:
+                outp, cntp = decode_walk.walk_decode_plain(
+                    toks[a:b], b - a, **kw,
+                    tile_bytes=4 * decode_walk.TILE_WORDS)
+                err = max(err, max_err(cnt, cntp))
+                if i == stop:
+                    return int(cnt), int(cntp), err
+                err = max(err, max_err(out, outp))
+            window = (out if window is None else
+                      torch.cat([window, out]))[-p.d_limit:]
+            outs.append(out)
+        return outs, err
+
+    outs, err = run(words, check=True)
+    got = torch.cat(outs).cpu().numpy().tobytes()
+    rec = {"kernel": "walk_decode_kernel", "case": name, "la": p.la,
+           "sb": p.sb, "tokens": T, "out_bytes": len(data),
+           "stages": len(bounds) - 1, "stage_tokens": stage_tokens,
+           "max_abs_err": err}
+    if err != 0 or got != data:
+        raise AssertionError(f"walk_decode_kernel chain wrong: {rec}")
+    a = bounds[corrupt_stage]
+    j = a + int(np.flatnonzero(ln[a:] > 0)[0])
+    bad = words.clone()
+    bad[j] = int(decode_walk.pack_token_words(
+        np.array([0]), ln[j : j + 1], nxt[j : j + 1])[0])
+    c, cp, err = run(bad, check=True, stop=corrupt_stage)
+    off_bad = off.copy()
+    off_bad[j] = 0
+    path = os.path.join(tmp, f"{name}.lz")
+    with open(path, "wb") as f:
+        f.write(bitio.build_stream(off_bad, ln, nxt, p))
+    try:
+        codec.decode_file_device(path, path + ".out",
+                                 tokens_per_stage=stage_tokens)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    rec.update(corrupt_stage=corrupt_stage, corrupt_token=j,
+               corrupt_count=c, corrupt_count_plain=cp, corrupt_raised=raised)
+    if (c, cp, err) != (-1, -1, 0) \
+            or raised != "corrupt stream: invalid token":
+        raise AssertionError(f"walk_decode_kernel corrupt stage: {rec}")
+    rec["ms"] = time_ms(lambda: run(words), reps)
+    rec["ms_per_stage"] = rec["ms"] / rec["stages"]
     return rec
 
 
@@ -716,11 +845,27 @@ def main() -> int:
         ("far_offsets", far.tobytes(), spec.Params(15, 65535)),
     ):
         s = native.encode(d, p)
-        checks.append(check_decode(name, s, d))
+        checks.append(check_decode(name, s, d)[0])
         T = spec.token_count(len(s) - 4, p.width)
         for k in {1, T // 3, T - 1} - {0, T}:
-            checks.append(check_decode(f"{name}_primed_at_{k}", s, d, split=k))
+            checks.append(
+                check_decode(f"{name}_primed_at_{k}", s, d, split=k)[0])
         checks.append(check_decode_packed(name, s, d))
+    # K3 as the streamed decode runs it: 3.5 MiB in stages of 2^17 tokens,
+    # each primed with the d_limit bytes before it, at the defaults and at
+    # the widest window (5000 random bytes that come back every 63,000:
+    # sources far back), with a corrupt stage in each
+    chain_block = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    chain_src = make_text(rng, 3 << 20).tobytes() + b"".join(
+        chain_block + make_text(rng, 58000).tobytes() for _ in range(8))
+    chains = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, p in (("chain_la15_sb4095", p0),
+                        ("chain_la15_sb65535", spec.Params(15, 65535))):
+            chains.append(check_decode_chain(name, chain_src, p, 1 << 17, 2,
+                                             tmp))
+    checks += chains
+    del chain_src
     # K6 alone: runs-heavy input, off 2-3 patterns of every phase against
     # the word grid, sources that straddle words, the deepest la (copies
     # long enough for the warp to share: off == 1 and far offsets)
@@ -779,6 +924,22 @@ def main() -> int:
     rec2 = check_walk("main_path_batch", args, L, O, G * B, 0, p0,
                       parse_walk.DEFAULT_SUB_BLOCK, reps=10)
     del args, L, O
+    # K2 at la 2, 15 and 255 (byte-aligned widths), from a nonzero entry:
+    # sub-blocks of one byte on one 1 MiB block, the default and 65,535 on
+    # the second 8 MiB text batch
+    rec2["ms_by_la_and_sub_block"] = {}
+    for la, sb in ((2, 65), (15, 4095), (255, 255)):
+        pk = spec.Params(la, sb)
+        for Gk, sub in ((1, 1), (G, parse_walk.DEFAULT_SUB_BLOCK), (G, 65535)):
+            args, vt = batch_on_card(x, G, Gk, B, pk)
+            L, O = match.match_sweep(*args, la=la, sb=sb)
+            r = check_walk(f"la{la}_sub_block{sub}", args, L, O, vt,
+                           min(3, la - 1), pk, sub, reps=3)
+            checks.append(r)
+            rec2["ms_by_la_and_sub_block"][r["case"]] = {
+                k: r[k] for k in ("span", "tokens", "ms", "plain_ms",
+                                  "bytes_ms", "scratch_bytes")}
+            del args, L, O
     rec4, _ = check_match("main_path_batch", x, G, G, B, p0, reps=5,
                           kernel="match_chunk_kernel")
     # K4 alone on a batch of zeros (every position saturates in the first
@@ -842,7 +1003,39 @@ def main() -> int:
         rec5[f"{name}_match_plus_walk_ms"] = r["match_plus_walk_ms"]
         rec5[f"{name}_tokens"] = r["tokens"]
     ref_stream = native.encode(data, p0)
-    rec3 = check_decode("main_path_stream", ref_stream, data, reps=3)
+    rec3, (toks3, T3, kw3) = check_decode("main_path_stream", ref_stream,
+                                          data, reps=3)
+    rec3["chains"] = {c["case"]: {k: c[k] for k in ("stages", "ms",
+                                                    "ms_per_stage")}
+                      for c in chains}
+    # the widest window (off_bits 16: a tail of 65,791 bytes, more than a
+    # tile) on 8 MiB of text, then both streams at other tile sizes, each
+    # result held against the module's own tile's, whose size is put back
+    wide_src = data[: 8 << 20]
+    r, wide = check_decode("main_shape_sb65535",
+                           native.encode(wide_src, spec.Params(15, 65535)),
+                           wide_src, reps=3)
+    rec3["sb65535_ms"] = r["ms"]
+    rec3["sb65535_tokens"] = r["tokens"]
+    tile_cases = (("sb4095", (toks3, T3, kw3)), ("sb65535", wide))
+    wants = [decode_walk.walk_decode(t, n, **k)[0] for _, (t, n, k)
+             in tile_cases]
+    own_tile = decode_walk.TILE_WORDS
+    rec3["ms_by_tile_words"] = {}
+    try:
+        for tw in (2048, 4096, 8192, 12288, 14336):
+            decode_walk.TILE_WORDS = tw
+            row = {}
+            for (tname, (t, n, k)), want in zip(tile_cases, wants):
+                if max_err(decode_walk.walk_decode(t, n, **k)[0], want):
+                    raise AssertionError(
+                        f"walk_decode_kernel at tile {tw} disagrees: {tname}")
+                row[f"{tname}_ms"] = time_ms(
+                    lambda: decode_walk.walk_decode(t, n, **k), 3)
+            rec3["ms_by_tile_words"][tw] = row
+    finally:
+        decode_walk.TILE_WORDS = own_tile
+    del toks3, kw3, wide, tile_cases, wants
     rec6 = check_decode_packed("main_path_stream", ref_stream, data, reps=3)
     rec6["walk_decode_kernel_scratch_bytes"] = rec3["scratch_bytes"]
     # the same stream at other tile sizes (fewer, larger tiles: fewer hops
@@ -857,14 +1050,17 @@ def main() -> int:
             rec6["ms_by_tile_words"][tw] = r["ms"]
     finally:
         decode_walk.TILE_WORDS = own_tile
-    # K6 alone on 8 MiB of zeros (no tile needs another) and of random
-    # bytes (short copies, nearly all literals)
+    # K3 and K6 alone on 8 MiB of zeros (no tile needs another) and of
+    # random bytes (short copies, nearly all literals)
     for name, xs in (("zeros", zeros_batch), ("random", random_batch)):
         d = xs.tobytes()
-        r = check_decode_packed(f"main_shape_{name}", native.encode(d, p0), d,
-                                reps=3)
+        s = native.encode(d, p0)
+        r = check_decode_packed(f"main_shape_{name}", s, d, reps=3)
         rec6[f"{name}_ms"] = r["ms"]
         rec6[f"{name}_tokens"] = r["tokens"]
+        r, _ = check_decode(f"main_shape_{name}", s, d, reps=3)
+        rec3[f"{name}_ms"] = r["ms"]
+        rec3[f"{name}_tokens"] = r["tokens"]
     del zeros_batch, random_batch, d
     checks += [rec1, rec2, rec3, rec4, rec5, rec6]
     emit({"kernel_checks": checks, "tolerance": 0})

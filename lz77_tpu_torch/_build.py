@@ -44,8 +44,10 @@ _KERNEL_ARGTYPES = {
     # valid_total, sub_block, la, ob, lb, stream
     "lz77_walk_parse_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
-    # tokens, T, buf, wp, out_cap, count, sums, ptr, flags, rounds, stream
-    "lz77_walk_decode": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _I, _P],
+    # tokens, T, out, out_cap, out_words, win, wp, count, sums, sync,
+    # off_bits, d_limit, len_limit, tile_words, stream
+    "lz77_walk_decode": [_P, _I, _P, _L, _L, _P, _I, _P, _P, _P,
+                         _I, _I, _I, _I, _P],
     # tokens, T, out, out_cap_words, count, sums, sync, off_bits, tile_words,
     # stream
     "lz77_walk_decode_packed": [_P, _I, _P, _L, _P, _P, _P, _I, _I, _P],

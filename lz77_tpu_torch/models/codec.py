@@ -90,7 +90,8 @@ class DecodeStats:
     input_bytes: int = 0
     output_bytes: int = 0
     # Streamed device decode only: kernel stages run, and host seconds by
-    # phase (read + token unpack, validate, device stage + fetch, write).
+    # phase (read + token unpack, validate = the kernel's verdict, device
+    # stage + fetch, write).
     stages: int = 0
     phases: dict = dataclasses.field(default_factory=dict)
 
@@ -301,6 +302,11 @@ def iter_block_bits(
         yield from process(pending)
 
 
+# The default of an argument that only one pipeline takes: passing it at
+# all to the other pipeline is an error, not a value to drop.
+_NOT_GIVEN = object()
+
+
 def encode_bytes(
     data: bytes,
     params: spec.Params | None = None,
@@ -308,29 +314,42 @@ def encode_bytes(
     pipeline: str = "fused",
     block_size: int | None = None,
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
-    sub_block: int | None = None,
+    sub_block=_NOT_GIVEN,
     matcher: str = match_ops.DEFAULT_MATCHER,
     stats: EncodeStats | None = None,
-    retries: int = 2,
-    fault_injector: faults_lib.FaultInjector | None = None,
+    retries=_NOT_GIVEN,
+    fault_injector=_NOT_GIVEN,
     device: str | torch.device | None = None,
 ) -> bytes:
     """Compress ``data`` into a complete reference-format stream.
 
     ``pipeline``: "fused" (device-resident, byte-aligned widths; takes
-    ``sub_block``) or "host" (device match + host parse, any width; takes
-    ``matcher``, ``retries``, ``fault_injector``).  Both emit the same
-    stream.
+    ``sub_block``, int or None; its one matcher is ``sweep``) or "host"
+    (device match + host parse, any width; takes ``matcher``, ``retries``
+    (default 2), ``fault_injector``).  Both emit the same stream.  A
+    matcher the fused pipeline does not run raises ``ValueError``; an
+    argument the chosen pipeline does not take raises ``TypeError``.
     """
     if pipeline == "fused":
+        if match_ops.route_matcher(matcher) != "sweep":
+            raise ValueError(
+                "pipeline 'fused' has one matcher, 'sweep'; "
+                f"use pipeline='host' for matcher {matcher!r}"
+            )
+        _refuse(pipeline, retries=retries, fault_injector=fault_injector)
         return fused.encode_bytes_fused(
             data, params, block_size=block_size, batch_blocks=batch_blocks,
-            sub_block=sub_block, stats=stats, device=device,
+            sub_block=None if sub_block is _NOT_GIVEN else sub_block,
+            stats=stats, device=device,
         )
     if pipeline != "host":
         raise ValueError(
             f"unknown pipeline {pipeline!r}; available: {', '.join(PIPELINES)}"
         )
+    _refuse(pipeline, sub_block=sub_block)
+    retries = 2 if retries is _NOT_GIVEN else retries
+    if fault_injector is _NOT_GIVEN:
+        fault_injector = None
     params = params or spec.Params()
     x = np.frombuffer(data, dtype=np.uint8)
     n = x.shape[0]
@@ -356,6 +375,15 @@ def encode_bytes(
         stream = bitio.assemble_stream(chunks, params)
         st.output_bytes = len(stream)
     return stream
+
+
+def _refuse(pipeline: str, **given) -> None:
+    """TypeError for any of ``given`` that the caller passed."""
+    passed = sorted(k for k, v in given.items() if v is not _NOT_GIVEN)
+    if passed:
+        raise TypeError(
+            f"pipeline {pipeline!r} takes no {', '.join(passed)} argument"
+        )
 
 
 class _PageReleaser:
@@ -859,8 +887,13 @@ def decode_file_device(
     and one stage's output regardless of stream size; every stage fetches
     exactly its decoded bytes.
 
-    Offsets are validated against the available history before replay;
-    raises ValueError on corrupt streams like the native route.
+    Every stage's tokens are checked by the kernel against the available
+    history and the header's limits; a stage that breaks one raises
+    ValueError like the native route, before any of its bytes is fetched
+    or written.  ``stats.phases``: ``read`` (file read, token unpack, word
+    packing), ``validate`` (launch to verdict: the replay with its checks
+    and the count read back), ``device`` (stage set-up, token upload, byte
+    fetch, window carry) and ``write``, host seconds each.
     """
     from ..ops import decode_walk
 
@@ -886,7 +919,6 @@ def decode_file_device(
         dlim = params.d_limit
         aligned = bitio.byte_aligned(params)
         window = None  # device tensor: decoded history tail (<= dlim bytes)
-        hist = 0
         total_out = 0
         # tokens_per_stage % 8 == 0 keeps every file chunk byte-aligned
         # (8 tokens always span a whole number of bytes at any width).
@@ -921,22 +953,8 @@ def decode_file_device(
                         ],
                         params,
                     )
-                t1 = clock()
-                ph["read"] += t1 - t0
-                # host-side validation: only well-formed offsets are
-                # replayed (1 <= off <= min(d_limit, history)).  (off is
-                # ignored when ln == 0, like every decoder here and the
-                # reference's copy loop, lz77.c:178-188)
-                starts = hist + np.concatenate(
-                    [[0], np.cumsum(ln[:-1] + 1)]
-                )
-                bad = (ln > 0) & (
-                    (off == 0) | (off > dlim) | (off > starts)
-                )
-                if bad.any() or (ln > params.len_limit).any():
-                    raise ValueError("corrupt stream: invalid token")
                 words = decode_walk.pack_token_words(off, ln, nxt)
-                ph["validate"] += clock() - t1
+                ph["read"] += clock() - t0
                 done = 0
                 while done < T_chunk:
                     t0 = clock()
@@ -949,28 +967,40 @@ def decode_file_device(
                         )))
                     n_out = int(cum[k - 1])
                     wp = 0 if window is None else int(window.shape[0])
+                    # the kernel checks every token: 1 <= off <= min(d_limit,
+                    # history) and len <= len_limit where len > 0 (off is
+                    # ignored when len == 0, like every decoder here and the
+                    # reference's copy loop, lz77.c:178-188); the window is
+                    # min(history, d_limit) bytes, so off > start + wp
+                    # and off > d_limit together are the history check
                     out, cnt = decode_walk.walk_decode(
                         torch.from_numpy(words[done : done + k]).to(dev), k,
                         out_cap=n_out, win=window, wp=wp,
+                        off_bits=params.off_bits, d_limit=dlim,
+                        len_limit=params.len_limit,
                     )
-                    piece = out.cpu().numpy()
-                    if int(cnt) != n_out:
+                    t1 = clock()
+                    n = int(cnt)  # the verdict, before any byte is fetched
+                    if n < 0:
+                        raise ValueError("corrupt stream: invalid token")
+                    if n != n_out:
                         raise RuntimeError(
-                            f"walk decode wrote {int(cnt)} bytes, "
-                            f"expected {n_out}"
+                            f"walk decode wrote {n} bytes, expected {n_out}"
                         )
+                    t2 = clock()
+                    ph["validate"] += t2 - t1
+                    piece = out.cpu().numpy()
                     # the window carried to the next stage stays on the
                     # device: the last d_limit bytes of history + output
                     if n_out >= dlim or window is None:
                         window = out[max(0, n_out - dlim):]
                     else:
                         window = torch.cat([window, out])[-dlim:]
-                    t1 = clock()
-                    ph["device"] += t1 - t0
+                    t3 = clock()
+                    ph["device"] += (t1 - t0) + (t3 - t2)
                     fout.write(piece)
-                    ph["write"] += clock() - t1
+                    ph["write"] += clock() - t3
                     total_out += n_out
-                    hist += n_out
                     st.stages += 1
                     done += k
                 if eof:

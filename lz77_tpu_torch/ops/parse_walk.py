@@ -18,20 +18,26 @@ a host round trip.
 Kernel note — ``csrc/parse_walk.cu`` replaces the TPU kernel
 ``lz77_tpu/ops/parse_walk.py::_kernel``, which walks the chain on the
 scalar unit because that machine has no vector gather.  Hopper has, so the
-walk is the parallel form: the span is cut into sub-blocks; a token
-overhangs a sub-block's end by at most la-1 bytes, so a sub-block's parse
-state is its entry offset.  (1) one thread per (sub-block, entry) walks the
-sub-block and records exit offset and token count; (2) one thread composes
-the maps in order, which gives every sub-block its true entry and its
-output offset, and the total and the exit; (3) one thread per sub-block
-walks again from its true entry and writes packed token words at its
-offset.  The kernel is bound by latency, not by bytes (4 B read per input
-byte, 4 B written per token): every step is a dependent load.  The design
-answers that with width — la * M independent walks in flight hide the
-latency — and leaves the LOX words one flat array in device memory (the
-span's 4 N bytes sit in L2); the staging tiles, the 128-word overlap and
-the la <= 128 limit of the TPU kernel are gone, and la goes up to 255 (the
-LOX length field is 8 bits).  Step (2) is serial over the M sub-blocks.
+walk is the parallel form: the span is cut into sub-blocks of ``sub_block``
+bytes; a token overhangs a sub-block's end by at most la-1 bytes, so a
+sub-block's parse state is its entry offset.  (1) one thread block per
+sub-block stages the lengths of its LOX words in shared memory and walks
+the sub-block from every entry: its map entry -> (exit offset, token
+count); (2) one thread block composes the maps, which are associative,
+with a scan (groups of 32 maps composed in a row, the group maps scanned in
+log2 rounds, then each group applied from its true entry): every
+sub-block's true entry and output offset, and the total and the exit;
+(3) one thread block per sub-block stages its LOX words with the la-1
+after them, one thread walks from the true entry recording token starts in
+shared memory, and all threads pack the token words and store them
+coalesced at the offset.  The kernel is bound by latency, not by bytes (4 B
+read per input byte, 4 B written per token): every step is a dependent
+load, here from shared memory, and no thread walks more than one sub-block
+or 32 maps in a row (the first port had one thread compose all the maps
+in order).  The staging tiles, the 128-word overlap and the la <= 128
+limit of the TPU kernel are gone, and la goes up to 255 (the LOX length
+field is 8 bits).  :func:`walk_parse_pack_plain` with ``sub_block`` follows
+the three steps.
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ import torch
 
 from .. import _build
 
-# Sub-block of the parallel walk.  Larger means fewer serial compose steps
-# and fewer, longer walks; 4096 keeps both under a millisecond for an
-# 8 MiB span.
+# Sub-block of the parallel walk: the bytes one thread walks from one entry,
+# and one thread block's work.  Larger means fewer maps to compose and
+# fewer, longer walks.
 DEFAULT_SUB_BLOCK = 4096
+# csrc/parse_walk.cu's scan: maps a chunk holds times la, maps a group
+SCAN_ENTRIES = 32768
+SCAN_GROUP = 32
 
 
 def build_lox(
@@ -95,6 +104,104 @@ def token_words_at(lox: torch.Tensor, starts: torch.Tensor, *, ob: int,
         torch.int32)
 
 
+def _walk_maps_plain(lox: torch.Tensor, valid_total: int, sub_block: int,
+                    la: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step 1: every sub-block's map, (M, la) exit offsets and (M, la)
+    token counts (int64), by walking all M * la walks a step at a time."""
+    n_ext = lox.shape[0]
+    dev = lox.device
+    ln = (lox.to(torch.int64) >> 16) & 0xFF
+    M = -(-valid_total // sub_block)
+    base = torch.arange(M, dtype=torch.int64, device=dev) * sub_block
+    end = torch.clamp(base + sub_block, max=valid_total)[:, None]
+    p = base[:, None] + torch.arange(la, dtype=torch.int64, device=dev)
+    c = torch.zeros_like(p)
+    while True:
+        live = p < end
+        if not bool(live.any()):
+            break
+        p = torch.where(live, p + ln[torch.clamp(p, max=n_ext - 1)] + 1, p)
+        c += live
+    return torch.clamp(p - end, max=la - 1), c
+
+
+def _compose_maps_plain(ex: torch.Tensor, cnt: torch.Tensor,
+                       entry: torch.Tensor, la: int):
+    """Step 2: the maps' scan as the kernel runs it -> (entries (M,),
+    offsets (M,), count, exit), int64.  Chunks of ``SCAN_ENTRIES // la``
+    maps; in each, groups of ``SCAN_GROUP`` maps composed in a row, the
+    group maps scanned (Hillis-Steele: S_j <- S_j o S_{j-d}), then each
+    group applied from its true entry; the chunk's exit carries on."""
+    M = ex.shape[0]
+    dev = ex.device
+    G = SCAN_GROUP
+    ident = torch.arange(la, dtype=torch.int64, device=dev)
+    e_in = int(entry.to(torch.int64).clamp(0, la - 1)[0])
+    o_in = 0
+    entries = torch.empty(M, dtype=torch.int64, device=dev)
+    offsets = torch.empty(M, dtype=torch.int64, device=dev)
+    C = SCAN_ENTRIES // la
+    for c0 in range(0, M, C):
+        n = min(C, M - c0)
+        ng = -(-n // G)
+        # pad the chunk to whole groups with identity maps of count 0
+        exg = ident.repeat(ng * G, 1)
+        cntg = torch.zeros(ng * G, la, dtype=torch.int64, device=dev)
+        exg[:n] = ex[c0 : c0 + n]
+        cntg[:n] = cnt[c0 : c0 + n]
+        exg = exg.reshape(ng, G, la)
+        cntg = cntg.reshape(ng, G, la)
+        gx = ident.repeat(ng, 1)
+        gc = torch.zeros(ng, la, dtype=torch.int64, device=dev)
+        for k in range(G):
+            gc = gc + cntg[:, k].gather(1, gx)
+            gx = exg[:, k].gather(1, gx)
+        d = 1
+        while d < ng:
+            x = gx[:-d]
+            gx, gc = (torch.cat([gx[:d], gx[d:].gather(1, x)]),
+                      torch.cat([gc[:d], gc[:-d] + gc[d:].gather(1, x)]))
+            d *= 2
+        x = torch.cat([torch.tensor([e_in], device=dev), gx[:-1, e_in]])
+        o = o_in + torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                              gc[:-1, e_in]])
+        rows = torch.arange(ng, device=dev)
+        for k in range(G):
+            idx = rows * G + k
+            keep = idx < n
+            entries[c0 + idx[keep]] = x[keep]
+            offsets[c0 + idx[keep]] = o[keep]
+            o = o + cntg[rows, k, x]
+            x = exg[rows, k, x]
+        o_in += int(gc[-1, e_in])
+        e_in = int(gx[-1, e_in])
+    return entries, offsets, o_in, e_in
+
+
+def _emit_plain(lox: torch.Tensor, valid_total: int, sub_block: int,
+               entries: torch.Tensor, offsets: torch.Tensor, *, la: int,
+               ob: int, lb: int) -> torch.Tensor:
+    """Step 3: every sub-block walked from its true entry, its token words
+    written from its offset -> (N,) int32, zero past the count."""
+    n_ext = lox.shape[0]
+    dev = lox.device
+    ln = (lox.to(torch.int64) >> 16) & 0xFF
+    M = entries.shape[0]
+    base = torch.arange(M, dtype=torch.int64, device=dev) * sub_block
+    end = torch.clamp(base + sub_block, max=valid_total)
+    p = base + entries
+    slot = offsets.clone()
+    tokens = torch.zeros(n_ext - la, dtype=torch.int32, device=dev)
+    while True:
+        live = p < end
+        if not bool(live.any()):
+            break
+        tokens[slot[live]] = token_words_at(lox, p[live], ob=ob, lb=lb)
+        slot = slot + live
+        p = torch.where(live, p + ln[torch.clamp(p, max=n_ext - 1)] + 1, p)
+    return tokens
+
+
 def walk_parse_pack_plain(
     lox: torch.Tensor,
     entry: torch.Tensor,
@@ -103,14 +210,30 @@ def walk_parse_pack_plain(
     la: int,
     ob: int,
     lb: int,
+    sub_block: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the chain as a pointer-doubling orbit.
+    """Plain PyTorch version.  Token slots past the count are zero.
 
-    S[i] = f^i(entry) over the jump table f(p) = p + L[p] + 1 (fixpoints at
-    and past ``valid_total``): each round doubles the number of known chain
-    positions with one gather, log2(N) rounds in all.  Token slots past the
-    count are zero.
+    ``sub_block=None``: the chain as a pointer-doubling orbit, S[i] =
+    f^i(entry) over the jump table f(p) = p + L[p] + 1 (fixpoints at and
+    past ``valid_total``): each round doubles the number of known chain
+    positions with one gather, log2(N) rounds in all.  With ``sub_block``
+    it follows the kernel: the sub-blocks' maps, their scan, and the walks
+    from the true entries (:func:`_walk_maps_plain`,
+    :func:`_compose_maps_plain`, :func:`_emit_plain`).
     """
+    if sub_block is not None:
+        if sub_block < 1:
+            raise ValueError(f"sub_block {sub_block} must be positive")
+        ex, cnt = _walk_maps_plain(lox, valid_total, sub_block, la)
+        entries, offsets, count, exit_e = _compose_maps_plain(
+            ex, cnt, entry, la)
+        tokens = _emit_plain(lox, valid_total, sub_block, entries, offsets,
+                            la=la, ob=ob, lb=lb)
+        dev = lox.device
+        return (tokens,
+                torch.tensor([count], dtype=torch.int32, device=dev),
+                torch.tensor([exit_e], dtype=torch.int32, device=dev))
     n_ext = lox.shape[0]
     N = n_ext - la
     dev = lox.device
@@ -149,9 +272,13 @@ def walk_parse_pack(
 
     ``tokens`` is (N,) int32; its first ``count`` words are the packed
     tokens of the exact serial parse (the rest is unspecified).  ``count``
-    and ``exit_entry`` are (1,) int32 tensors on ``lox``'s device.  CUDA
+    and ``exit_entry`` are (1,) int32 tensors on ``lox``'s device.
+    ``sub_block`` is the bytes one thread walks from one entry (and one
+    thread block's share of the span); it never changes the result.  CUDA
     tensors launch the kernel (or raise); CPU tensors run the plain
-    version.  ``walk_parse_pack.launches`` counts launches.
+    version.  ``walk_parse_pack.launches`` counts launches and
+    ``walk_parse_pack.scratch_bytes`` is the device-memory scratch of the
+    last one (the maps, the sub-blocks' entries and offsets).
     """
     N = lox.shape[0] - la
     if not 2 <= la <= 255:
@@ -190,7 +317,9 @@ def walk_parse_pack(
         )
     _build.check(err, "walk_parse_pack_kernel")
     walk_parse_pack.launches += 1
+    walk_parse_pack.scratch_bytes = 5 * M * la + 8 * M
     return tokens, count, exit_e
 
 
 walk_parse_pack.launches = 0
+walk_parse_pack.scratch_bytes = 0

@@ -21,7 +21,9 @@ def trace(log_dir: str | None):
     self device microseconds and whether the row is a device activity — a
     kernel or a copy; a host operator's device time is that of the
     activities it started, so sums take device rows only — and ``wall_us``
-    of the traced region).
+    of the traced region).  The trace opens with one fill of one element
+    on the device, outside ``wall_us``: CUPTI may drop the first device
+    activities of a trace, and without it those were the region's own.
     """
     if not log_dir:
         yield
@@ -35,6 +37,11 @@ def trace(log_dir: str | None):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
+        if torch.cuda.is_available():
+            # the device's first activities after the start can be lost
+            # from the trace: spend them on a one-element fill first
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
         if torch.cuda.is_available():

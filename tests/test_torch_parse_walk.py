@@ -29,8 +29,10 @@ from conftest import make_text
 torch.set_num_threads(1)
 
 
-def _port_batch(gb, gh, gr, ga, gv, vt, entry, params):
-    """Port side of one batch: JAX match tables -> LOX -> walk -> bytes."""
+def _port_batch(gb, gh, gr, ga, gv, vt, entry, params, sub_block=None):
+    """Port side of one batch: JAX match tables -> LOX -> walk -> bytes.
+    With ``sub_block`` the plain version's kernel decomposition (maps, their
+    scan, the emit walks) must give the same tokens, count and exit."""
     find = functools.partial(
         jax_match.find_matches_chunked, la=params.la, sb=params.sb
     )
@@ -43,13 +45,19 @@ def _port_batch(gb, gh, gr, ga, gv, vt, entry, params):
         lox, entry, vt, la=params.la, ob=params.off_bits, lb=params.len_bits
     )
     assert count.shape == (1,) and exit_e.shape == (1,)
+    if sub_block is not None:
+        tk, ck, ek = parse_walk.walk_parse_pack_plain(
+            lox, entry, vt, la=params.la, ob=params.off_bits,
+            lb=params.len_bits, sub_block=sub_block)
+        assert torch.equal(tk, tokens)
+        assert torch.equal(ck, count) and torch.equal(ek, exit_e)
     nb = params.width // 8
     t = int(count)
     payload = tokens[:t].view(torch.uint8).reshape(t, 4)[:, :nb]
     return payload.numpy().tobytes(), t, exit_e
 
 
-def _chain(data, params, B, G, jax_step):
+def _chain(data, params, B, G, jax_step, sub_block=None):
     x = np.frombuffer(data, np.uint8)
     n = x.shape[0]
     H, R = params.d_limit, params.len_limit
@@ -68,7 +76,8 @@ def _chain(data, params, B, G, jax_step):
             *(jnp.asarray(a) for a in (gb, gh, gr, ga, gv)), jnp.int32(vt),
             e_jax, la=params.la, sb=params.sb, matcher="chunked",
         )
-        pp, tp, e_port = _port_batch(gb, gh, gr, ga, gv, vt, e_port, params)
+        pp, tp, e_port = _port_batch(gb, gh, gr, ga, gv, vt, e_port, params,
+                                     sub_block)
         assert tp == int(tj)
         assert int(e_port) == int(e_jax)
         assert pp == np.asarray(pj)[: tp * nb].tobytes()
@@ -99,6 +108,43 @@ def test_walk_deep_la_and_wide_tokens(la, sb, rng):
     )
     step = functools.partial(jax_fused.encode_batch_device, sub_block=512)
     _chain(data, spec.Params(la=la, sb=sb), 2048, 2, step)
+
+
+@pytest.mark.parametrize("sub_block", [1, 7, 4096])
+@pytest.mark.parametrize("la,sb", [(2, 65), (15, 4095), (255, 255)])
+def test_walk_decomposition_follows_the_kernel(la, sb, sub_block):
+    """The plain version's kernel decomposition at sub-blocks of one byte,
+    of seven (shorter than la at la 15 and 255) and of 4,096 (two a
+    span), against the orbit form and the JAX package's scan parser on the
+    same LOX, batch after batch, entered mid-token by the exit entry."""
+    rng = np.random.default_rng(0)  # this input enters a batch mid-token
+    data = (make_text(rng, 6000) + b"z" * 2500 + make_text(rng, 1500)
+            + b"\x00" * 2049 + bytes(rng.integers(0, 256, 300,
+                                                   dtype=np.uint8))
+            + make_text(rng, 4000) + b"xy" * 2000 + b"w" * 3001)
+    step = functools.partial(jax_fused.encode_batch_device, sub_block=512)
+    entered = _chain(data, spec.Params(la=la, sb=sb), 4096, 2, step,
+                     sub_block=sub_block)
+    assert entered > 0
+
+
+def test_walk_scan_crosses_chunks_and_groups():
+    """More maps than one chunk of the kernel's scan holds, and a last
+    chunk that ends mid-group: the scan's carry from chunk to chunk."""
+    la = 15
+    C = parse_walk.SCAN_ENTRIES // la
+    M = 2 * C + parse_walk.SCAN_GROUP + 5
+    rng = np.random.default_rng(7)
+    L = rng.integers(0, la, M).astype(np.int32)
+    L[rng.random(M) < 0.5] = 0
+    lox = convert.lox_from_numpy(L, L * 3, rng.integers(0, 256, M),
+                                 np.zeros(la - 1), la, "cpu")
+    for entry in (0, 9):
+        e = torch.tensor([entry], dtype=torch.int32)
+        want = parse_walk.walk_parse_pack_plain(lox, e, M, la=la, ob=12, lb=4)
+        got = parse_walk.walk_parse_pack_plain(lox, e, M, la=la, ob=12, lb=4,
+                                               sub_block=1)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
 
 
 def test_walk_matches_pallas_walk_interpreted(rng):
@@ -134,3 +180,15 @@ def test_walk_rejects_bad_arguments():
         parse_walk.walk_parse_pack(lox, e.to(torch.int64), 5, la=15, ob=12, lb=4)
     with pytest.raises(ValueError, match="la"):
         parse_walk.walk_parse_pack(lox, e, 5, la=256, ob=12, lb=4)
+
+
+def test_scan_constants_match_the_kernel_source():
+    """The plain decomposition's chunk and group are the kernel's."""
+    import os
+
+    from lz77_tpu_torch import _build
+
+    with open(os.path.join(_build.CSRC, "parse_walk.cu")) as f:
+        src = f.read()
+    assert f"GROUP = {parse_walk.SCAN_GROUP};" in src
+    assert f"SCAN_ENTRIES = {parse_walk.SCAN_ENTRIES};" in src
