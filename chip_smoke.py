@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives three paths, each once, with the kernels'
+shape, times both, and then drives five paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -25,10 +25,29 @@ launch counts set to 0 just before and read just after:
 * the merged path: ``encode_bytes_fused(parser="merged")`` of the same
   input, one launch of the merged sweep+walk kernel a batch and none of the
   match sweep or the walk parse; the stream equal to the native encoder's
-  and to the walk route's, and decoded back.
+  and to the walk route's, and decoded back;
+* the co-issue probe: ``experiments.coissue.probe()`` at the experiment's
+  own sizes, its four kernels (X-V, X-S, X-F, X-Q: one thread block on one
+  SM each), its JSON line printed with the experiment's verdict;
+* the conformance runner: ``run_conformance(scale=4)`` over the corpus's
+  eight classes and a real source file (about 37 MiB), once with the
+  ``device`` backend and once with the walk route (``fused``), every file
+  round-tripped and its stream equal to the native encoder's; then the
+  stream inspector (``dump``) on one stream, its token count against the
+  parsed stream's.
 
 The plain tensor modules (the scan parser, the chunked decoder) run on the
 card on the first 8 MiB and are held against the same references.
+
+The probe's kernels are held against their plain versions from a random
+slab (V at nv 1, 2 and 7, all 8 slabs), across the scalar table's wrap (S
+at ns 8, 4096 and 10,000), F at nv 7 with k 8 and 24, and Q at nv 7, ns 56;
+each is timed beside its plain version and its bound (V: integer issue at
+one SM, two instructions an element; S: the latency of its chain, one
+shared-memory load-to-use a step; F: the larger, Q: the sum).  ``bound_by``
+takes the words "bytes" and "operations" only, so each X entry of the
+``kernels`` line also says in ``bound_note`` what its bound counts; V's
+timing record adds ``smem_ms``, the limit its shared-memory accesses set.
 
 The walk decode is also held against its plain version's tiled
 decomposition on the small cases, and run as the streamed decode runs it:
@@ -81,7 +100,9 @@ import numpy as np
 import torch
 
 import lz77_tpu_torch as lt
-from lz77_tpu_torch import _build, bitio, cli, native, spec
+from lz77_tpu_torch import (_build, bitio, cli, conformance, corpus, dump,
+                            native, spec)
+from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
@@ -92,6 +113,16 @@ HBM_BYTES_PER_S = 3.35e12
 # the data sheet's 67 TFLOP/s fp32 counts an FMA as two, on 128 lanes per
 # SM; half of those lanes issue INT32, so 67e12 / 2 / 2 compares a second.
 INT_OPS_PER_S = 67e12 / 4
+# The co-issue probe's kernels run as one thread block on one of the 132 SMs,
+# at the H100 SXM's 1.98 GHz boost clock.
+SMS = 132
+CLOCK_HZ = 1.98e9
+# Its scalar chain is bound by latency: each step's load address is the
+# previous load's value.  Assumed: one shared-memory load-to-use of 30
+# cycles a step.
+SMEM_LOAD_TO_USE_S = 30 / CLOCK_HZ
+# One SM's shared memory serves 32 four-byte words a clock.
+SMEM_WORDS_PER_S = 32 * CLOCK_HZ
 
 WRAPPERS = {
     "match_kernel": match.match_sweep,
@@ -100,6 +131,10 @@ WRAPPERS = {
     "match_chunk_kernel": match_chunk.match_chunk,
     "decode_packed_kernel": decode_walk.walk_decode_packed,
     "sweepwalk_kernel": fused_walk.sweep_walk,
+    "coissue_v_kernel": coissue.call_v,
+    "coissue_s_kernel": coissue.call_s,
+    "coissue_f_kernel": coissue.call_f,
+    "coissue_q_kernel": coissue.call_q,
 }
 KERNEL_INFO = {
     "match_kernel": ("lz77_tpu_torch/csrc/match.cu",
@@ -114,6 +149,14 @@ KERNEL_INFO = {
                              "lz77_tpu/ops/decode_walk.py:316"),
     "sweepwalk_kernel": ("lz77_tpu_torch/csrc/fused_walk.cu",
                          "lz77_tpu/ops/fused_walk.py:62"),
+    "coissue_v_kernel": ("lz77_tpu_torch/csrc/coissue.cu",
+                         "experiments/coissue.py:71"),
+    "coissue_s_kernel": ("lz77_tpu_torch/csrc/coissue.cu",
+                         "experiments/coissue.py:80"),
+    "coissue_f_kernel": ("lz77_tpu_torch/csrc/coissue.cu",
+                         "experiments/coissue.py:95"),
+    "coissue_q_kernel": ("lz77_tpu_torch/csrc/coissue.cu",
+                         "experiments/coissue.py:112"),
 }
 # the kernels each driven path must launch at least once
 LIBRARY_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
@@ -122,6 +165,10 @@ CLI_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                     "walk_decode_kernel", "match_chunk_kernel",
                     "decode_packed_kernel")
 MERGED_PATH_KERNELS = ("sweepwalk_kernel", "walk_decode_kernel")
+CONFORMANCE_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                            "walk_decode_kernel")
+PROBE_PATH_KERNELS = ("coissue_v_kernel", "coissue_s_kernel",
+                      "coissue_f_kernel", "coissue_q_kernel")
 
 
 def emit(obj) -> None:
@@ -519,6 +566,185 @@ def check_sweepwalk(name, x, g0, G, B, p, entry=0, cut=0, reps=0):
 
 
 # ---------------------------------------------------------- CLI path -----
+
+# ------------------------------------------------------- X-V .. X-Q -----
+
+def probe_bounds(nv: int, steps: int) -> tuple[float, float]:
+    """ms: ``nv`` vector bodies at one SM's share of the integer rate (two
+    instructions a slab element: ``(x ^ a) | (x & b)`` is one three-input
+    LOP3, ``+ 1`` one IADD), and ``steps`` scalar steps at one
+    shared-memory load-to-use each (a latency, not a rate)."""
+    ops = nv * coissue.SLAB * coissue.RR * coissue.LANES * 2
+    return ops / (INT_OPS_PER_S / SMS) * 1e3, steps * SMEM_LOAD_TO_USE_S * 1e3
+
+
+def probe_smem_ms(nv: int) -> float:
+    """ms: the shared-memory accesses of ``coissue_v_kernel``'s design, three
+    loads and a store a slab element a body, at one SM's rate.  Not a bound
+    of the function (a slab held in registers needs none of them): the
+    limit of this design, beside its time."""
+    return nv * coissue.SLAB * coissue.RR * coissue.LANES * 4 \
+        / SMEM_WORDS_PER_S * 1e3
+
+
+def check_probe(seed: torch.Tensor, init: torch.Tensor) -> list:
+    """The probe's kernels against their plain versions on the card,
+    tolerance 0: V from a random slab (all 8 slabs), S across the table's
+    wrap twice (stores land where the chain loads after 2,048 steps), F at
+    two k, Q; and the default slab, zeros, gives nv everywhere."""
+    checks = []
+
+    def held(kernel, case, got, want, **info):
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        rec = {"kernel": kernel, "case": case, **info, "max_abs_err": err}
+        if err != 0:
+            raise AssertionError(f"{kernel} disagrees: {rec}")
+        checks.append(rec)
+
+    for nv in (1, 2, 7):
+        want = coissue.kernel_v(init, nv)
+        held("coissue_v_kernel", f"nv{nv}_random_slab",
+             coissue.call_v(nv, init=init), (want[:1], want), nv=nv)
+    for ns in (8, 4096, 10000):
+        held("coissue_s_kernel", f"ns{ns}", (coissue.call_s(seed, ns, 8),),
+             (coissue.kernel_s(seed, ns, 8),), ns=ns, unroll=8)
+    for k in (8, 24):
+        slab, tp = coissue.kernel_f(seed, init, 7, k)
+        held("coissue_f_kernel", f"nv7_k{k}", coissue.call_f(seed, 7, k, init),
+             (slab[:1], tp, slab), nv=7, k=k)
+    slab, tp = coissue.kernel_q(seed, init, 7, 56, 8)
+    held("coissue_q_kernel", "nv7_ns56", coissue.call_q(seed, 7, 56, 8, init),
+         (slab[:1], tp, slab), nv=7, ns=56, unroll=8)
+    _, slab = coissue.call_v(5, device=init.device)
+    if not bool((slab == 5).all()):
+        raise AssertionError("coissue_v_kernel: the default slab is not zeros")
+    return checks
+
+
+def time_probe(seed: torch.Tensor, init: torch.Tensor, k: int,
+               checks: list) -> list:
+    """Each probe kernel timed (median of 3 after a warm-up) beside its
+    plain version and its bound, at loop counts the plain versions (a
+    tensor op an element op of the chain) finish in about a second: V at
+    nv 1000, S at ns 10,000, F and Q at nv 100 with the probe's k."""
+    slab_b, seed_b = init.numel() * 4, seed.numel() * 4
+    v_ops, _ = probe_bounds(1000, 0)
+    _, s_lat = probe_bounds(0, 10000)
+    fv_ops, fs_lat = probe_bounds(100, 100 * k)
+    # (kernel, case, kernel call, plain call, bytes, operations bound in ms,
+    #  what that bound counts)
+    cases = (
+        ("coissue_v_kernel", "nv1000", lambda: coissue.call_v(1000, init=init),
+         lambda: coissue.kernel_v(init, 1000), 2 * slab_b, v_ops,
+         "issue: a LOP3 and an IADD a slab element a body"),
+        ("coissue_s_kernel", "ns10000", lambda: coissue.call_s(seed, 10000, 8),
+         lambda: coissue.kernel_s(seed, 10000, 8), seed_b + 4, s_lat,
+         "latency: one shared-memory load-to-use a dependent step"),
+        ("coissue_f_kernel", f"nv100_k{k}",
+         lambda: coissue.call_f(seed, 100, k, init),
+         lambda: coissue.kernel_f(seed, init, 100, k),
+         2 * slab_b + seed_b + 4, max(fv_ops, fs_lat),
+         "the larger of V's issue and S's latency"),
+        ("coissue_q_kernel", f"nv100_ns{100 * k}",
+         lambda: coissue.call_q(seed, 100, 100 * k, 8, init),
+         lambda: coissue.kernel_q(seed, init, 100, 100 * k, 8),
+         2 * slab_b + seed_b + 4, fv_ops + fs_lat,
+         "V's issue plus S's latency"),
+    )
+    recs = []
+    for kernel, case, fn, plain, nbytes, ops_ms, note in cases:
+        recs.append({
+            "kernel": kernel, "case": case,
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["kernel"] == kernel),
+            "ms": time_ms(fn, 3), "plain_ms": time_ms(plain, 1),
+            "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops_ms, "bound_note": note,
+        })
+    recs[0]["smem_ms"] = probe_smem_ms(1000)
+    return recs
+
+
+def drive_probe_path() -> tuple[dict, dict]:
+    """The experiment's own measurement at its own sizes, once, counts
+    zeroed before; prints its JSON line.  Returns (result, launches)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    r = coissue.probe()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(PROBE_PATH_KERNELS, "the probe path")
+    print(coissue.result_line(r), flush=True)
+    missing = set(coissue.KEYS) - set(r)
+    if missing or not all(np.isfinite(v) for v in r.values()):
+        raise AssertionError(f"probe result incomplete: {r}")
+    nearer_max = abs(r["fused_iter_us"] - r["max_us"]) \
+        <= abs(r["fused_iter_us"] - r["sum_us"])
+    emit({"coissue": {
+        **r, "sizes": {"nv": [coissue.NV1, coissue.NV2],
+                       "ns": [coissue.NS1, coissue.NS2],
+                       "unroll": coissue.UNROLL},
+        "seconds": seconds, "launches": launches,
+        "verdict": ("t_F nearer max(t_V, t_S): the chains overlap"
+                    if nearer_max else
+                    "t_F nearer t_V + t_S: the chains do not overlap"),
+    }})
+    return r, launches
+
+
+# ------------------------------------------------------ conformance -----
+
+def drive_conformance(tmp: str) -> dict:
+    """``run_conformance(scale=4)`` with the device backend and the walk
+    route, counts zeroed before each: every file round-trips and its stream
+    equals the native encoder's.  Then the stream inspector on one stream.
+    Returns {backend: launches}."""
+    files = corpus.get_corpus(4)
+    want = {name: native.encode(d, spec.Params()) for name, d in files.items()}
+    by_backend = {}
+    for backend in ("device", "fused"):
+        reset_counts()
+        streams = {}
+        t0 = time.perf_counter()
+        rows = conformance.run_conformance(4, backend, tmp, streams=streams)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_backend[backend] = read_counts(CONFORMANCE_PATH_KERNELS,
+                                          f"the conformance path ({backend})")
+        bad = [r["file"] for r in rows
+               if not r["roundtrip"] or streams[r["file"]] != want[r["file"]]]
+        if bad or sorted(streams) != sorted(files):
+            raise AssertionError(f"conformance ({backend}) fails on {bad}")
+        emit({"conformance": {
+            "backend": backend, "scale": 4, "files": len(rows),
+            "input_bytes": sum(r["bytes"] for r in rows), "wall_s": wall,
+            "rows": rows, "launches": by_backend[backend],
+            "roundtrip": True, "streams_equal_native": True,
+        }})
+    stream = streams["synthetic:english"]
+    buf = io.StringIO()
+    dump.dump(stream, limit=3, as_json=True, out=buf)
+    info = json.loads(buf.getvalue())
+    tokens = int(bitio.parse_stream(stream)[1].shape[0])
+    if info["tokens"] != tokens or len(info["first_tokens"]) != 3:
+        raise AssertionError(f"dump says {info['tokens']}, stream {tokens}")
+    emit({"dump": {"file": "synthetic:english", "tokens": tokens,
+                   "literals": info["literals"], "matches": info["matches"],
+                   "decoded_bytes": info["decoded_bytes"]}})
+    return by_backend
+
+
+def reset_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_counts(must_launch, what) -> dict:
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    idle = [k for k in must_launch if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"{what} never launched {idle}: {counts}")
+    return counts
+
 
 def run_cli(argv, expect_rc=0):
     """``cli.main(argv + ["--report"])`` -> the run report (or None); the
@@ -1063,18 +1289,16 @@ def main() -> int:
         rec3[f"{name}_tokens"] = r["tokens"]
     del zeros_batch, random_batch, d
     checks += [rec1, rec2, rec3, rec4, rec5, rec6]
+    # X-V .. X-Q, the co-issue probe's kernels, from --seed: the
+    # experiment's seed recipe and a random initial slab
+    prng = np.random.default_rng(a.seed + 7)
+    p_seed = torch.from_numpy(coissue.make_seed(prng)).cuda()
+    p_init = torch.from_numpy(prng.integers(
+        -(1 << 31), 1 << 31, (coissue.SLAB, coissue.RR, coissue.LANES),
+        dtype=np.int64).astype(np.int32)).cuda()
+    probe_checks = check_probe(p_seed, p_init)
+    checks += probe_checks
     emit({"kernel_checks": checks, "tolerance": 0})
-
-    def reset_counts():
-        for w in WRAPPERS.values():
-            w.launches = 0
-
-    def read_counts(must_launch, what):
-        counts = {k: w.launches for k, w in WRAPPERS.items()}
-        idle = [k for k in must_launch if counts[k] < 1]
-        if idle:
-            raise AssertionError(f"{what} never launched {idle}: {counts}")
-        return counts
 
     # ---- the library path, once, through the public entry points --------
     reset_counts()
@@ -1184,21 +1408,34 @@ def main() -> int:
         if a.profile:
             emit({"profile": profile_paths(data, stream, tmp, a.profile_dir)})
 
+    # ---- the co-issue probe, once, at the experiment's own sizes --------
+    probe_result, probe_launches = drive_probe_path()
+    xrecs = time_probe(p_seed, p_init,
+                       probe_result["k_scalar_steps_per_iter"], probe_checks)
+    emit({"probe_kernels": xrecs})
+
+    # ---- the conformance runner at scale 4, both device encoders --------
+    with tempfile.TemporaryDirectory() as tmp:
+        conf_launches = drive_conformance(tmp)
+
+    paths = (launches, m_launches, cli_launches, *conf_launches.values(),
+             probe_launches)
     kernels = []
-    for rec in (rec1, rec2, rec3, rec4, rec5, rec6):
+    for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
             "replaces": KERNEL_INFO[name][1],
-            # launches over the three driven paths together
-            "launches": (launches[name] + cli_launches[name]
-                         + m_launches[name]),
+            # launches over every driven path together
+            "launches": sum(path[name] for path in paths),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": max(rec["bytes_ms"], rec["ops_ms"]),
             "bound_by": ("bytes" if rec["bytes_ms"] >= rec["ops_ms"]
                          else "operations"),
             "library_ms": None,
+            **({"bound_note": rec["bound_note"]} if "bound_note" in rec
+               else {}),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -20,6 +20,9 @@ Layering:
 * ``native``            — ctypes binding of the C++ host codec (oracle,
                           host parse/pack helpers, streamed file codec)
 * ``cli``               — the reference-compatible command line
+* ``corpus`` / ``conformance`` / ``dump`` — the conformance corpus, the
+                          per-file conformance runner, the stream inspector
+* ``experiments``       — the co-issue probe (four kernels of its own)
 * ``device`` / ``_build`` — the device rule; kernel build and load
 * ``convert``           — the JAX package's values -> this package's tensors
 

@@ -27,7 +27,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
 
 KERNEL_SOURCES = ("match.cu", "match_chunk.cu", "parse_walk.cu",
-                  "decode_walk.cu", "decode_walk_packed.cu", "fused_walk.cu")
+                  "decode_walk.cu", "decode_walk_packed.cu", "fused_walk.cu",
+                  "coissue.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +55,12 @@ _KERNEL_ARGTYPES = {
     # blocks, halos, rights, avails, valid_exts, entry, sync, tokens, count,
     # exit, G, B, dlim, depth, la, valid_total, tile, n_tiles, ob, lb, stream
     "lz77_sweepwalk": [_P] * 10 + [_I] * 10 + [_P],
+    # the co-issue probe: init, out, nv, stream; seed, out, steps, stream;
+    # seed, init, out, out2, nv, steps, stream (F and Q)
+    "lz77_coissue_v": [_P, _P, _I, _P],
+    "lz77_coissue_s": [_P, _P, _L, _P],
+    "lz77_coissue_f": [_P, _P, _P, _P, _I, _L, _P],
+    "lz77_coissue_q": [_P, _P, _P, _P, _I, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,8 @@ import torch
 
 import lz77_tpu
 import lz77_tpu_torch
-from lz77_tpu_torch import _build, convert, device
+from lz77_tpu_torch import _build, conformance, convert, device
+from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
@@ -41,7 +42,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "lz77_tpu_torch.utils.profiling",
             "lz77_tpu_torch.ops.fused_walk", "lz77_tpu_torch.ops.parse",
             "lz77_tpu_torch.ops.pack", "lz77_tpu_torch.ops.decode",
-            "lz77_tpu_torch.models.decoder"} <= set(names)
+            "lz77_tpu_torch.models.decoder", "lz77_tpu_torch.corpus",
+            "lz77_tpu_torch.dump", "lz77_tpu_torch.conformance",
+            "lz77_tpu_torch.experiments.coissue"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -103,12 +106,17 @@ def test_default_device_raises_without_a_card():
             np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
             np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
             np.full(1, 8, np.int32), 8, 0, la=15, sb=4095, device="cuda"),
+        lambda: coissue.call_v(3),
+        lambda: coissue.probe(),
+        lambda: conformance.run_conformance(1, "device"),
+        lambda: conformance.run_big_streamed(1e-6, "."),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
          "iter_block_bits", "decode_tokens_walk_packed",
          "encode_batch_sweepwalk", "encode_bytes_fused_merged",
-         "encode_bytes_fused_scan", "encode_batch_device"],
+         "encode_bytes_fused_scan", "encode_batch_device", "coissue_call_v",
+         "coissue_probe", "run_conformance", "run_big_streamed"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
@@ -118,7 +126,9 @@ def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
                 decode_walk.walk_decode.launches,
                 match_chunk.match_chunk.launches,
                 decode_walk.walk_decode_packed.launches,
-                fused_walk.sweep_walk.launches)
+                fused_walk.sweep_walk.launches,
+                *(f.launches for f in (coissue.call_v, coissue.call_s,
+                                       coissue.call_f, coissue.call_q)))
 
     before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -186,6 +196,20 @@ def test_every_kernel_source_is_built_and_packaged():
                 if line.startswith('#include "'):
                     assert os.path.exists(
                         os.path.join(_build.CSRC, line.split('"')[1]))
+
+
+def test_every_subpackage_is_packaged():
+    """``pyproject.toml`` lists every package of the port, so an install
+    carries the experiments too."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml")) as f:
+        text = f.read()
+    pkgs = ["lz77_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(
+            lz77_tpu_torch.__path__, "lz77_tpu_torch.") if m.ispkg]
+    assert "lz77_tpu_torch.experiments" in pkgs
+    for name in pkgs:
+        assert f'"{name}",' in text, name
 
 
 def test_kernel_tag_follows_headers_too(tmp_path, monkeypatch):
