@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives five paths, each once, with the kernels'
+shape, times both, and then drives six paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -34,7 +34,23 @@ launch counts set to 0 just before and read just after:
   ``device`` backend and once with the walk route (``fused``), every file
   round-tripped and its stream equal to the native encoder's; then the
   stream inspector (``dump``) on one stream, its token count against the
-  parsed stream's.
+  parsed stream's;
+* the sharded path: ``encode_bytes_sharded`` of the same input on 1x1, 8x1
+  and 4x2 meshes whose members all sit on the one card (K1 launched once a
+  block and window member, K2 once a block, K4 and K5 never), each stream
+  equal to the native encoder's and decoded back; ``encode_file(pipeline=
+  "sharded")`` on 4x2 killed after two batches and resumed; the CLI's
+  ``--pipeline sharded`` (default mesh, ``--device cuda --host-devices 8
+  --mesh 4x2``, ``-l 8 -s 500`` on 8 MiB); the host pipeline with the 4x2
+  mesh's ``sharded_match_fn`` on 8 MiB.
+
+K1 over a range of distances (the window axis) is held against its plain
+version on splits of 2, 3 and 4 members at la 2 / 15 / 255 x sb 15 / 4095
+/ 65535, on ranges starting and ending at every residue mod 4, on zeros,
+random bytes and far offsets, and the members' combined tables against
+unranged K1; at the main path's shapes too: every member of splits of 2
+and 4 on the 8 MiB text batch, and the one-block shards of the 4x2 mesh.
+K1's record carries each member's time at the main shape (``ranged_ms``).
 
 The plain tensor modules (the scan parser, the chunked decoder) run on the
 card on the first 8 MiB and are held against the same references.
@@ -106,6 +122,8 @@ from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
+from lz77_tpu_torch.parallel import mesh as mesh_lib
+from lz77_tpu_torch.parallel import sharded
 from lz77_tpu_torch.utils import faults, profiling
 
 HBM_BYTES_PER_S = 3.35e12
@@ -169,6 +187,10 @@ CONFORMANCE_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                             "walk_decode_kernel")
 PROBE_PATH_KERNELS = ("coissue_v_kernel", "coissue_s_kernel",
                       "coissue_f_kernel", "coissue_q_kernel")
+SHARDED_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                        "walk_decode_kernel")
+# (data, win) shapes of the sharded path's meshes, every member on cuda:0
+SHARDED_MESHES = ((1, 1), (8, 1), (4, 2))
 
 
 def emit(obj) -> None:
@@ -275,6 +297,128 @@ def check_match(name, x, g0, G, B, p, reps=0, kernel="match_kernel"):
             ops_ms_four_a_lane_op=ops / 4 / INT_OPS_PER_S * 1e3,
         )
     return rec, (args, L, O)
+
+
+def check_ranged(name, args, B, p, d_lo, d_hi):
+    """K1 over the distances [d_lo, d_hi) against its plain version on one
+    batch on the card; returns the record and the kernel's tables."""
+    kw = dict(la=p.la, sb=p.sb, d_lo=d_lo, d_hi=d_hi)
+    L, O = match.match_sweep(*args, **kw)
+    Lp, Op = match.match_sweep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rec = {"kernel": "match_kernel", "case": name, "la": p.la, "sb": p.sb,
+           "shape": [len(args[0]), B], "d_lo": d_lo, "d_hi": d_hi,
+           "max_abs_err": max(max_err(L, Lp), max_err(O, Op))}
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"ranged match_kernel disagrees: {rec}")
+    return rec, (L, O)
+
+
+def check_split(name, x, g0, G, B, p, n_win, plain=True):
+    """The window axis's split of the distances over ``n_win`` members
+    (``sharded._win_ranges``): each member's ranged K1 against its plain
+    version (``plain``; else kernel alone), and the max of their
+    ``combine_key``s against unranged K1."""
+    args, _ = batch_on_card(x, g0, G, B, p)
+    recs, keys = [], []
+    for d_lo, d_hi in sharded._win_ranges(p.d_limit, n_win):
+        if plain:
+            rec, (L, O) = check_ranged(f"{name}_split{n_win}", args, B, p,
+                                       d_lo, d_hi)
+            recs.append(rec)
+        else:
+            L, O = match.match_sweep(*args, la=p.la, sb=p.sb, d_lo=d_lo,
+                                     d_hi=d_hi)
+        keys.append(match.combine_key(L, O, p.d_limit))
+    Lc, Oc = match.split_key(torch.amax(torch.stack(keys), dim=0), p.d_limit)
+    L1, O1 = match.match_sweep(*args, la=p.la, sb=p.sb)
+    err = max(max_err(Lc, L1), max_err(Oc, O1))
+    recs.append({"kernel": "match_kernel", "case": f"{name}_split{n_win}",
+                 "la": p.la, "sb": p.sb, "members": n_win,
+                 "max_abs_err": err, "combined_vs_unranged": True})
+    if err != 0:
+        raise AssertionError(f"combined ranged tables differ: {recs[-1]}")
+    return recs
+
+
+def check_ranged_cases(rng, mixed, far) -> list:
+    """Ranged K1 on the card, max error 0: splits of 2, 3 and 4 members at
+    la 2 / 15 / 255 x sb 15 / 4095 / 65535 from the stream start (avail 0,
+    then avail < d_limit: members with nothing in range), ranges that start
+    at every residue mod 4 and end at every residue (the staged window,
+    and so each position's alignment, follows d_hi), zeros (a member w > 0
+    stops at d_lo) and random bytes.  The plain version makes a pass per
+    reachable distance, so the sb 65535 cases run on 4,500 bytes; far
+    offsets (sources 65,000 back) take a range near d_limit against the
+    plain version, and splits on them the kernel alone against unranged
+    K1."""
+    recs = []
+    for la in (2, 15, 255):
+        for sb in (15, 4095, 65535):
+            xs, G, B = ((mixed, 5, 1801) if sb < 65535
+                        else (mixed[:4500], 3, 1501))
+            for n_win in (2, 3, 4):
+                recs += check_split(f"la{la}_sb{sb}", xs, 0, G, B,
+                                    spec.Params(la, sb), n_win)
+    p0 = spec.Params()
+    args, _ = batch_on_card(mixed, 0, 5, 1801, p0)
+    for d_lo in range(2, 10):
+        for width in (1, 6, 301):
+            recs.append(check_ranged(f"d_lo{d_lo}_width{width}", args, 1801,
+                                     p0, d_lo, d_lo + width)[0])
+    for name, xs in (("zeros", np.zeros(8000, np.uint8)),
+                     ("random", rng.integers(0, 256, 8000, dtype=np.uint8))):
+        for p, G, B in ((p0, 5, 1801), (spec.Params(255, 65535), 3, 1333)):
+            for n_win in (2, 4):
+                recs += check_split(name, xs, 0, G, B, p, n_win)
+    pw = spec.Params(15, 65535)
+    args, _ = batch_on_card(far, 1, 2, 30000, pw)
+    recs.append(check_ranged("far_offsets", args, 30000, pw, 61001,
+                             65535)[0])
+    for p in (pw, spec.Params(255, 65535)):
+        for n_win in (2, 3, 4):
+            recs += check_split("far_offsets", far, 1, 2, 30000, p, n_win,
+                                plain=False)
+    return recs
+
+
+def time_ranged(x, g0, args, B, p, rec1) -> list:
+    """K1 over ranges at the main path's shapes, each member against its
+    plain version (max error 0) and timed, n=3: every member of splits of 2
+    and 4 on the text batch ``args`` (rows ``g0``..), with the members'
+    combined tables against unranged K1; then one-block shards, the shape
+    the 4x2 mesh gives each member, at its two ranges, from the stream start
+    and from the text batch's first block.  Returns the check records."""
+    L1, O1 = match.match_sweep(*args, la=p.la, sb=p.sb)
+    rec1["ranged_ms"] = {}
+    recs = []
+    for n_win in (2, 4):
+        keys = []
+        for w, (d_lo, d_hi) in enumerate(sharded._win_ranges(p.d_limit,
+                                                             n_win)):
+            rec, (L, O) = check_ranged(f"main_path_batch_split{n_win}_w{w}",
+                                       args, B, p, d_lo, d_hi)
+            recs.append(rec)
+            keys.append(match.combine_key(L, O, p.d_limit))
+            kw = dict(la=p.la, sb=p.sb, d_lo=d_lo, d_hi=d_hi)
+            rec1["ranged_ms"][f"{n_win}_members_w{w}"] = {
+                "d_lo": d_lo, "d_hi": d_hi,
+                "ms": time_ms(lambda: match.match_sweep(*args, **kw), 3)}
+        Lc, Oc = match.split_key(torch.amax(torch.stack(keys), dim=0),
+                                 p.d_limit)
+        err = max(max_err(Lc, L1), max_err(Oc, O1))
+        rec1["ranged_ms"][f"{n_win}_members_combined_err"] = err
+        recs.append({"kernel": "match_kernel",
+                     "case": f"main_path_batch_split{n_win}", "members": n_win,
+                     "max_abs_err": err, "combined_vs_unranged": True})
+        if err != 0:
+            raise AssertionError(f"main-shape split of {n_win} differs")
+    for row in (0, g0):
+        shard, _ = batch_on_card(x, row, 1, B, p)
+        for d_lo, d_hi in sharded._win_ranges(p.d_limit, 2):
+            recs.append(check_ranged(f"shard_4x2_row{row}", shard, B, p,
+                                     d_lo, d_hi)[0])
+    return recs
 
 
 # ---------------------------------------------------------------- K2 -----
@@ -887,6 +1031,162 @@ def drive_cli_path(data: bytes, ref_stream: bytes, tmp: str):
     return rec
 
 
+def card_mesh(n_data: int, n_win: int):
+    """An n_data x n_win mesh whose members all sit on cuda:0."""
+    return mesh_lib.make_mesh(n_data, n_win,
+                              devices=["cuda:0"] * (n_data * n_win))
+
+
+def drive_sharded_path(data: bytes, ref_stream: bytes, tmp: str):
+    """The sharded pipeline, counts zeroed before each step and read after:
+    ``encode_bytes_sharded`` on 1x1, 8x1 and 4x2 meshes (K1 launches =
+    batches x n_data x n_win, K2 = batches x n_data, K4 = K5 = 0; stream ==
+    the library path's == ``native.encode``; ``decompress`` gives the data
+    back); ``encode_file(pipeline="sharded")`` on 4x2 with a manifest,
+    killed after two batches and finished by ``resume=True``; the CLI
+    (default mesh, ``--device cuda --host-devices 8 --mesh 4x2``, ``-l 8
+    -s 500`` on 8 MiB); the host pipeline with ``sharded_match_fn`` of the
+    4x2 mesh on 8 MiB.  Returns (record, launches over the phase)."""
+    p0 = spec.Params()
+    B = codec.DEFAULT_BLOCK_SIZE
+    nblocks = -(-len(data) // B)
+    total = {k: 0 for k in WRAPPERS}
+    rec = {"input_bytes": len(data), "la": p0.la, "sb": p0.sb,
+           "block_size": B, "meshes": {}}
+
+    def counted(what, must_launch=("match_kernel",)):
+        counts = read_counts(must_launch, what)
+        for k, v in counts.items():
+            total[k] += v
+        return counts
+
+    for nd, nw in SHARDED_MESHES:
+        m = card_mesh(nd, nw)
+        reset_counts()
+        st = codec.EncodeStats()
+        t0 = time.perf_counter()
+        s = sharded.encode_bytes_sharded(data, p0, mesh=m, stats=st)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        enc_counts = {k: w.launches for k, w in WRAPPERS.items()}
+        back = lt.decompress(s)
+        counts = counted(f"the sharded path ({nd}x{nw})",
+                         SHARDED_PATH_KERNELS)
+        # a batch is n_data blocks, a shard one block: every shard of every
+        # batch holds a block (batches x n_data, where n_data divides the
+        # blocks, as it does for the 40 one-MiB blocks here)
+        batches = -(-nblocks // nd)
+        want = {"match_kernel": nblocks * nw,
+                "walk_parse_pack_kernel": nblocks,
+                "match_chunk_kernel": 0, "sweepwalk_kernel": 0}
+        if any(enc_counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"sharded {nd}x{nw} launched {enc_counts}, "
+                                 f"want {want}")
+        if s != ref_stream:
+            raise AssertionError(f"sharded {nd}x{nw} stream differs")
+        if back != data:
+            raise AssertionError(f"sharded {nd}x{nw} round trip differs")
+        rec["meshes"][f"{nd}x{nw}"] = {
+            "batch_blocks": nd, "batches": batches, "encode_s": dt,
+            "encode_MB_s": len(data) / dt / 1e6, "shards": st.shards,
+            "resyncs": st.resyncs, "tokens": st.tokens,
+            "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
+            "phases": st.phases.as_dict(), "launches": counts,
+            "stream_equals_native": True, "roundtrip": True,
+        }
+    # the three meshes again in turns, uncounted: the host clock's spread
+    turns = {f"{nd}x{nw}": [] for nd, nw in SHARDED_MESHES}
+    for nd, nw in (*SHARDED_MESHES, *SHARDED_MESHES[::-1]):
+        t0 = time.perf_counter()
+        sharded.encode_bytes_sharded(data, p0, mesh=card_mesh(nd, nw))
+        torch.cuda.synchronize()
+        turns[f"{nd}x{nw}"].append(len(data) / (time.perf_counter() - t0)
+                                   / 1e6)
+    rec["encode_MB_s_in_turns"] = turns
+
+    # encode_file on 4x2 with a manifest: killed after two batches, resumed
+    inp, out, man = (os.path.join(tmp, n) for n in ("in", "sh.lz", "sh.json"))
+    with open(inp, "wb") as f:
+        f.write(data)
+    m = card_mesh(4, 2)
+    kw = dict(pipeline="sharded", mesh=m, batch_blocks=8, manifest_path=man)
+    reset_counts()
+    try:
+        codec.encode_file(inp, out, p0, fault_injector=faults.FaultInjector(
+            {2: 1}), **kw)
+    except RuntimeError as e:
+        if "injected fault" not in str(e):
+            raise
+    else:
+        raise AssertionError("the injected fault did not stop encode_file")
+    with open(man) as f:
+        done = len(json.load(f)["blocks"])
+    st = codec.EncodeStats()
+    t0 = time.perf_counter()
+    codec.encode_file(inp, out, p0, resume=True, stats=st, **kw)
+    resume_s = time.perf_counter() - t0
+    counted("the sharded file encode")
+    # shards of two blocks; the first two batches' eight are not re-run
+    shards = sum(-(-min(8, nblocks - g0) // 2) for g0 in range(0, nblocks, 8))
+    batches = -(-nblocks // 8)
+    if done != 2 or st.shards != shards - 8 or read(out) != ref_stream:
+        raise AssertionError(f"sharded resume: {done} records, {st.shards} "
+                             "shards re-run, or the stream differs")
+    resumed = batches - 2
+    whole = os.path.join(tmp, "sh_whole.lz")
+    reset_counts()
+    codec.encode_file(inp, whole, p0, pipeline="sharded", mesh=m)
+    counted("the sharded file encode, uninterrupted")
+    if read(whole) != read(out):
+        raise AssertionError("resumed sharded file != uninterrupted one")
+    rec["file"] = {"mesh": "4x2", "batch_blocks": 8, "batches": batches,
+                   "killed_after_batches": done, "resumed_batches": resumed,
+                   "resume_s": resume_s, "resumed_equals_uninterrupted": True,
+                   "stream_equals_native": True}
+
+    # the CLI: default mesh, 4x2 on the card, the phase-pack route
+    reset_counts()
+    clis = {}
+    r = run_cli(["-c", "-i", inp, "-o", out, "--pipeline", "sharded"])
+    if read(out) != ref_stream:
+        raise AssertionError("cli --pipeline sharded stream differs")
+    clis["default_mesh"] = r
+    r = run_cli(["-c", "-i", inp, "-o", out, "--pipeline", "sharded",
+                 "--device", "cuda", "--host-devices", "8", "--mesh", "4x2"])
+    if read(out) != ref_stream or r["shards"] != shards:
+        raise AssertionError(f"cli sharded 4x2 differs: {r}")
+    clis["4x2_on_one_card"] = r
+    small = data[: 8 << 20]
+    p20 = spec.Params(8, 500)
+    sin, sout = os.path.join(tmp, "in8"), os.path.join(tmp, "out8.lz")
+    with open(sin, "wb") as f:
+        f.write(small)
+    r = run_cli(["-c", "-i", sin, "-o", sout, "-l", "8", "-s", "500",
+                 "--pipeline", "sharded"])
+    if read(sout) != native.encode(small, p20):
+        raise AssertionError("cli sharded -l 8 -s 500 stream differs")
+    clis["l8_s500_8MiB"] = r
+    counted("the sharded CLI")
+    rec["cli"] = {k: {f: v.get(f) for f in (
+        "wall_s", "mb_per_s", "shards", "resyncs", "resync_head_tokens",
+        "resync_bulk", "h2d_bytes", "d2h_bytes", "phases")}
+        for k, v in clis.items()}
+
+    # the host pipeline with the 4x2 mesh's match phase
+    reset_counts()
+    t0 = time.perf_counter()
+    s = codec.encode_bytes(small, p0, pipeline="host",
+                           match_fn=sharded.sharded_match_fn(m, p0))
+    host_s = time.perf_counter() - t0
+    counted("the host pipeline with sharded_match_fn")
+    if s != native.encode(small, p0):
+        raise AssertionError("host pipeline with sharded_match_fn differs")
+    rec["host_match_fn"] = {"mesh": "4x2", "input_bytes": len(small),
+                            "encode_s": host_s, "stream_equals_native": True}
+    rec["launches"] = total
+    return rec, total
+
+
 def profile_summary(profile_dir: str, name: str):
     """Device time by kernel and the device's idle share of one traced
     region, from the numbers ``utils.profiling.trace`` wrote."""
@@ -914,6 +1214,8 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
         lt.decompress(stream)
     with profiling.trace(os.path.join(pdir, "merged_encode")):
         fused.encode_bytes_fused(data, parser="merged")
+    with profiling.trace(os.path.join(pdir, "sharded_encode_4x2")):
+        sharded.encode_bytes_sharded(data, mesh=card_mesh(4, 2))
     inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out.lz")
     calls = {
         "cli_encode_host_chunk": ["-c", "-i", inp, "-o", out, "--pipeline",
@@ -928,7 +1230,7 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
         run_cli(argv + ["--profile", os.path.join(pdir, name)])
     return [profile_summary(pdir, name) for name in
             ("library_compress", "library_decompress", "merged_encode",
-             *calls)]
+             "sharded_encode_4x2", *calls)]
 
 
 def main() -> int:
@@ -955,7 +1257,6 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     emit({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-
     t0 = time.perf_counter()
     _build.kernels()
     t1 = time.perf_counter()
@@ -1011,6 +1312,9 @@ def main() -> int:
         for p in (p0, spec.Params(255, 65535)):
             rec, _ = check_match(name, xs, 0, 5, 1801, p)
             checks.append(rec)
+
+    # K1 over a range of distances (the sharded pipeline's window axis)
+    checks += check_ranged_cases(rng, mixed, far)
 
     # K4 small, against its plain version and against K1: the same cases,
     # the deepest la with the widest window, the shallowest la, a block
@@ -1147,6 +1451,7 @@ def main() -> int:
     # main-path shapes: the second 8 MiB text batch; the whole stream
     G, B = codec.DEFAULT_BATCH_BLOCKS, codec.DEFAULT_BLOCK_SIZE
     rec1, (args, L, O) = check_match("main_path_batch", x, G, G, B, p0, reps=5)
+    checks += time_ranged(x, G, args, B, p0, rec1)
     rec2 = check_walk("main_path_batch", args, L, O, G * B, 0, p0,
                       parse_walk.DEFAULT_SUB_BLOCK, reps=10)
     del args, L, O
@@ -1418,8 +1723,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         conf_launches = drive_conformance(tmp)
 
+    # ---- the sharded pipeline: meshes on the card, file, CLI, match_fn ---
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sh_rec, sh_launches = drive_sharded_path(data, ref_stream, tmp)
+        sh_rec["phase_s"] = time.perf_counter() - t0
+        emit({"sharded_path": sh_rec})
+
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
-             probe_launches)
+             probe_launches, sh_launches)
     kernels = []
     for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]

@@ -22,6 +22,7 @@ Layering:
 * ``cli``               — the reference-compatible command line
 * ``corpus`` / ``conformance`` / ``dump`` — the conformance corpus, the
                           per-file conformance runner, the stream inspector
+* ``parallel``          — device meshes and the sharded encode pipelines
 * ``experiments``       — the co-issue probe (four kernels of its own)
 * ``device`` / ``_build`` — the device rule; kernel build and load
 * ``convert``           — the JAX package's values -> this package's tensors
@@ -90,10 +91,11 @@ def compress_file(
 ) -> None:
     """File-to-file encode in bounded memory (memmap input, streamed output).
 
-    ``pipeline``: "host" (device match + host parse, any token width) or
-    "fused" (device-resident match+parse+pack); kwargs pass through to
+    ``pipeline``: "host" (device match + host parse, any token width),
+    "fused" (device-resident match+parse+pack) or "sharded" (the same over
+    a device mesh, ``mesh=``); kwargs pass through to
     ``models.codec.encode_file`` (``manifest_path``/``resume`` for
-    checkpointing, ``block_size``, ``matcher``, ...).
+    checkpointing, ``block_size``, ``matcher``, ``mesh``, ...).
     """
     from .models import codec
 

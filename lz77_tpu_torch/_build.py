@@ -38,8 +38,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C interface of csrc/*.cu: every pointer and the stream is a c_void_p (a
 # bare Python int would be cut to 32 bits).  Each returns cudaGetLastError().
 _KERNEL_ARGTYPES = {
+    # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth,
+    # d_lo, d_hi, stream
+    "lz77_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth, stream
-    "lz77_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lz77_match_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lox, entry, exit_map, cnt_map, entries, offsets, tokens, count, exit,
     # valid_total, sub_block, la, ob, lb, stream

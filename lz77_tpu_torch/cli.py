@@ -12,9 +12,12 @@ runs here.  What differs follows from the device rule: ``--backend`` is
 both ``device`` by default, and nothing falls back; ``--device cuda|cpu``
 takes the place of ``--platform`` (``cpu`` runs the kernels' plain PyTorch
 versions); ``--matcher`` names this package's two kernels (``sweep``,
-``chunk``; ``pallas_bitplane`` and ``pallas`` are accepted as aliases);
-``--pipeline sharded``, ``--mesh`` and ``--host-devices`` are parsed and
-answered with exit 1: the multi-device pipeline is not ported yet.
+``chunk``; ``pallas_bitplane`` and ``pallas`` are accepted as aliases).
+``--pipeline sharded`` runs over a mesh of devices (``--mesh DATAxWIN``;
+default every visible card on the data axis); ``--host-devices N`` gives
+the mesh N members on the device that ``--device`` names (``cpu`` unless
+``--device`` is given, as the JAX flag implies ``--platform cpu``), so
+``--device cuda --host-devices 8 --mesh 4x2`` runs a 4x2 mesh on one card.
 
 Divergence (SURVEY.md §2.3.8): sb values of 0, 1 or exact powers of two are
 rejected by default because the reference encoder corrupts data for them;
@@ -99,11 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device-backend encode pipeline: 'host' = device "
                         "match + host parse; 'fused' = device-resident "
                         "match+parse+pack (byte-aligned token widths); "
-                        "'sharded' = the multi-device pipeline (not ported "
-                        "yet: exits 1)")
+                        "'sharded' = the same over a device mesh (see "
+                        "--mesh)")
     p.add_argument("--mesh", default=None, metavar="DATAxWIN",
-                   help="Device mesh shape for --pipeline sharded (not "
-                        "ported yet: exits 1)")
+                   help="Device mesh shape for --pipeline sharded, e.g. "
+                        "4x2 (data x win); default: every member on the "
+                        "data axis")
     p.add_argument("--decode-backend",
                    choices=("device", "host", "native"), default=None,
                    help="device-backend decoder (default device): 'device' "
@@ -127,8 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "raises without a card).  'cpu' runs the kernels' "
                         "plain PyTorch versions on the host")
     p.add_argument("--host-devices", type=int, default=None, metavar="N",
-                   help="Virtual host devices for --pipeline sharded (not "
-                        "ported yet: exits 1)")
+                   help="Mesh members for --pipeline sharded, all on the "
+                        "--device (which defaults to cpu with this flag); "
+                        "e.g. '--host-devices 8 --pipeline sharded --mesh "
+                        "4x2', or with --device cuda on one card")
     return p
 
 
@@ -178,14 +184,12 @@ def main(argv: list[str] | None = None) -> int:
     sb = args.sb if args.sb is not None else spec.DEFAULT_SB_SIZE
     params = spec.Params(la=la, sb=sb)
 
-    if args.pipeline == "sharded" or args.mesh or args.host_devices:
-        print(
-            "--pipeline sharded, --mesh and --host-devices belong to the "
-            "multi-device pipeline, which is not ported yet; use --pipeline "
-            "host or fused",
-            file=sys.stderr,
-        )
-        return 1
+    if args.host_devices:
+        if args.host_devices < 1:
+            print("--host-devices must be >= 1", file=sys.stderr)
+            return 1
+        if args.device is None:
+            args.device = "cpu"
 
     if (
         args.mode == "decode"
@@ -306,6 +310,10 @@ def main(argv: list[str] | None = None) -> int:
         stats = codec.EncodeStats()
         try:
             kwargs = _block_kwargs(args, params)
+            if args.pipeline == "sharded":
+                _sharded_kwargs(args, kwargs)
+            else:
+                kwargs["device"] = args.device
             from .utils import profiling
 
             with profiling.trace(args.profile):
@@ -313,8 +321,7 @@ def main(argv: list[str] | None = None) -> int:
                     args.input[0], args.output[0], params,
                     matcher=args.matcher, stats=stats,
                     manifest_path=args.manifest,
-                    resume=args.resume, pipeline=args.pipeline,
-                    device=args.device, **kwargs,
+                    resume=args.resume, pipeline=args.pipeline, **kwargs,
                 )
         except (ValueError, RuntimeError) as e:
             print(f"Encode error: {e}", file=sys.stderr)
@@ -340,6 +347,11 @@ def main(argv: list[str] | None = None) -> int:
             if stats.h2d_bytes:
                 rep["h2d_bytes"] = stats.h2d_bytes
                 rep["d2h_bytes"] = stats.d2h_bytes
+            if stats.shards:
+                rep["shards"] = stats.shards
+                rep["resyncs"] = stats.resyncs
+                rep["resync_head_tokens"] = stats.resync_head_tokens
+                rep["resync_bulk"] = stats.resync_bulk
             print(json.dumps(rep), file=sys.stderr)
         return 0
 
@@ -416,6 +428,33 @@ def _block_kwargs(args, params: spec.Params) -> dict:
     return kwargs
 
 
+def _sharded_kwargs(args, kwargs: dict) -> None:
+    """Set the sharded pipeline's ``mesh`` in ``kwargs``: the (data, win)
+    shape from --mesh (default: all members on data) over --host-devices
+    members on --device, else one member on ``--device cpu``, else every
+    visible card; ``batch_blocks`` defaults to twice its data axis."""
+    from .parallel import mesh as mesh_lib
+
+    if args.host_devices:
+        devices = [args.device] * args.host_devices
+    elif args.device == "cpu":
+        devices = ["cpu"]
+    else:
+        devices = None
+    shape = {}
+    if args.mesh:
+        try:
+            shape["n_data"], shape["n_win"] = (
+                int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            raise ValueError(
+                f"--mesh must look like '4x2', got {args.mesh!r}"
+            ) from None
+    kwargs["mesh"] = mesh_lib.make_mesh(devices=devices, **shape)
+    kwargs.setdefault("batch_blocks",
+                      2 * kwargs["mesh"].shape[mesh_lib.DATA_AXIS])
+
+
 def _encode(data: bytes, params: spec.Params, args):
     if args.backend == "numpy":
         from .models import spec_np
@@ -432,12 +471,20 @@ def _encode(data: bytes, params: spec.Params, args):
 
     stats = codec.EncodeStats()
     kwargs = _block_kwargs(args, params)
-    if args.pipeline == "host":
-        kwargs["matcher"] = args.matcher
-    out = codec.encode_bytes(
-        data, params, pipeline=args.pipeline, stats=stats,
-        device=args.device, **kwargs,
-    )
+    if args.pipeline == "sharded":
+        from .parallel import sharded
+
+        _sharded_kwargs(args, kwargs)
+        out = sharded.encode_bytes_sharded(
+            data, params, matcher=args.matcher, stats=stats, **kwargs,
+        )
+    else:
+        if args.pipeline == "host":
+            kwargs["matcher"] = args.matcher
+        out = codec.encode_bytes(
+            data, params, pipeline=args.pipeline, stats=stats,
+            device=args.device, **kwargs,
+        )
     return out, {
         "backend": "device",
         "pipeline": args.pipeline,

@@ -30,8 +30,9 @@ keys.  Where it differs, it does so by decision:
 * :func:`run_big_streamed`'s default matcher is the port's ``sweep`` (the
   port refuses the JAX package's XLA ``chunked``), and its self-check
   decodes in a ``python -m lz77_tpu_torch.cli -d ... --report --device D``
-  subprocess.  ``--big-pipeline sharded`` exits 1: the multi-device
-  pipeline is not ported yet.
+  subprocess.  ``--big-pipeline sharded`` runs ``encode_file``'s sharded
+  pipeline on a one-member mesh on ``--device`` when it is given, else on
+  every visible card.
 
 Every function takes ``device=`` and passes it on; the default is the card.
 """
@@ -184,7 +185,9 @@ def run_big_streamed(gigabytes: float, workdir: str,
     The input is written to disk once (deterministic mixed corpus tiles)
     and encoded through the bounded-memory manifest path — ``pipeline``
     selects the engine ('host' = device match + host parse; 'fused' = the
-    device-resident match+parse+pack pipeline).  Verification is two-fold:
+    device-resident match+parse+pack pipeline; 'sharded' = the same over a
+    mesh: one member on ``device`` when it is given, else every visible
+    card).  Verification is two-fold:
 
     * **self**: the port's own streamed bounded-memory decoder (its CLI's
       ``-d`` in a subprocess, on ``device`` — O(window) RSS, recorded),
@@ -221,7 +224,7 @@ def run_big_streamed(gigabytes: float, workdir: str,
     t0 = time.perf_counter()
     codec.encode_file(
         src, dst, params, matcher=matcher, stats=stats,
-        manifest_path=dst + ".manifest", pipeline=pipeline, device=dev,
+        manifest_path=dst + ".manifest", pipeline=pipeline, device=device,
         **kwargs,
     )
     enc_s = time.perf_counter() - t0
@@ -320,11 +323,6 @@ def main(argv=None) -> int:
     ap.add_argument("--big-pipeline", default="host",
                     choices=("host", "fused", "sharded"))
     args = ap.parse_args(argv)
-    if args.big_pipeline == "sharded":
-        print("--big-pipeline sharded belongs to the multi-device pipeline, "
-              "which is not ported yet; use --big-pipeline host or fused",
-              file=sys.stderr)
-        return 1
 
     with tempfile.TemporaryDirectory() as wd:
         rows = run_conformance(args.scale, args.backend, wd,

@@ -5,7 +5,8 @@
 // Coordinates.  A thread block stages the bytes of its tile, the d_limit
 // bytes before it and the (la-1) bytes after it in a 4-aligned shared array
 // (plus SLACK zero bytes, so a word read may run a few bytes past the last
-// real one).  A position's own bytes start at byte index xi; with
+// real one); a sweep over a range of distances that ends below d_limit
+// stages only the window it can reach.  A position's own bytes start at byte index xi; with
 // a = xi % 4 and w0 = xi / 4, the aligned word w0 - t holds the sources of
 // the four distances a + 4t - 3 .. a + 4t (its byte j: distance a + 4t - j).
 //
@@ -27,8 +28,8 @@
 // the answer is the serial loop's), and its marks become one mask in
 // distance order, so a single loop measures the marked runs nearest first,
 // updates the answer after each as the serial loop would and stops at the
-// cap.  Edge masks are needed in the first step (distances below 1) and
-// the last (beyond dmax) only.
+// cap.  Edge masks are needed in the first step (distances below 1, or
+// below the range's first distance) and the last (beyond dmax) only.
 
 #pragma once
 
@@ -76,21 +77,23 @@ __device__ __forceinline__ int run_length(const uint32_t* sw,
   return cap;
 }
 
-// Stage the bytes of block coordinates [t0 - dlim, t0 + tile + depth) of
+// Stage the bytes of block coordinates [t0 - win, t0 + tile + depth) of
 // input block g (halo | block | right extension, zeros past them) at
 // s[0 ..), then SLACK zero bytes; `threads` threads take a byte each in turn.
+// win <= dlim is the window a tile needs: dlim, or less for a sweep whose
+// distances end below it.
 __device__ __forceinline__ void stage_window(
     uint8_t* s, const uint8_t* __restrict__ blk,
     const uint8_t* __restrict__ hal, const uint8_t* __restrict__ rgt, int t0,
-    int tile, int B, int dlim, int depth, int threads) {
-  const int span = dlim + tile + depth;
+    int tile, int B, int dlim, int depth, int threads, int win) {
+  const int span = win + tile + depth;
   const int padded = ((span + 3) & ~3) + SLACK;
   for (int i = threadIdx.x; i < padded; i += threads) {
-    const int j = t0 - dlim + i;
+    const int j = t0 - win + i;
     uint8_t v = 0;
     if (i < span) {
       if (j < 0) {
-        v = hal[dlim + j];  // j >= -dlim because t0 >= 0
+        v = hal[dlim + j];  // j >= -win >= -dlim because t0 >= 0
       } else if (j < B) {
         v = blk[j];
       } else if (j < B + depth) {
@@ -99,6 +102,14 @@ __device__ __forceinline__ void stage_window(
     }
     s[i] = v;
   }
+}
+
+// The whole window: byte i of s holds block coordinate t0 - dlim + i.
+__device__ __forceinline__ void stage_window(
+    uint8_t* s, const uint8_t* __restrict__ blk,
+    const uint8_t* __restrict__ hal, const uint8_t* __restrict__ rgt, int t0,
+    int tile, int B, int dlim, int depth, int threads) {
+  stage_window(s, blk, hal, rgt, t0, tile, B, dlim, depth, threads, dlim);
 }
 
 // Shared bytes a staged tile takes: the span rounded up to words + SLACK.
@@ -112,27 +123,28 @@ __host__ __device__ __forceinline__ int staged_bytes(int dlim, int tile,
 // branch, and their marks are measured in one loop.
 constexpr int GROUP = 8;
 
-// Longest run (at most cap >= 1) of the position at byte index xi against
-// distances 1 .. dmax, and the nearest distance that gives it: .x = run,
-// .y = distance (0, 0 when nothing matches).  See the note at the top.
-__device__ __forceinline__ int2 sweep_position(const uint32_t* sw, int xi,
-                                               int cap, int dmax) {
+// The sweep from word step tf (whose bytes j outside first_mask lie below
+// the first distance) to the step that holds dmax: the longest run (at most
+// cap >= 1) of the position at byte index xi and the nearest distance that
+// gives it: .x = run, .y = distance (0, 0 when nothing matches).  See the
+// note at the top; sweep_position and sweep_range below choose tf.
+__device__ __forceinline__ int2 sweep_steps(const uint32_t* sw, int xi,
+                                            int cap, int tf,
+                                            uint32_t first_mask, int dmax) {
   const uint8_t* s = reinterpret_cast<const uint8_t*>(sw);
   const int a = xi & 3, w0 = xi >> 2;
   uint32_t X[XREG];  // the position's first bytes, read once
 #pragma unroll
   for (int q = 0; q < XREG; ++q) X[q] = 4 * q < cap ? load4(sw, xi + 4 * q) : 0u;
   // Step t's byte j is distance a + 4t - j.  The last step, tmax, holds
-  // distance dmax; its bytes j < lo lie beyond dmax.  Step 0's bytes j >= a
-  // are distances below 1.
+  // distance dmax; its bytes j < lo lie beyond dmax.
   const int tmax = (dmax + 3 - a) >> 2;
   const int lo = a + 4 * tmax - dmax;  // 0..3
-  const uint32_t first_mask = (1u << (8 * a)) - 1u;
   const uint32_t last_mask = 0xFFFFFFFFu << (8 * lo);
   const uint32_t c0s = (X[0] & 0xFFu) * 0x01010101u;  // x[0], four times
   uint32_t cbs = c0s;                                 // x[best], four times
   int best = 0, best_o = 0, bq = 0, bs = 0;  // bq, bs: best / 4, 8 (best % 4)
-  uint32_t up = sw[w0 + 1];  // sw[w0 - t + bq + 1] at step t
+  uint32_t up = sw[w0 - tf + 1];  // sw[w0 - t + bq + 1] at step t
 
   // The filter word of step t: a zero byte j, that distance matches x[0]
   // at index 0 and x[best] at index best.
@@ -172,10 +184,10 @@ __device__ __forceinline__ int2 sweep_position(const uint32_t* sw, int xi,
   // which only measures one run more.
   auto marks = [&](uint32_t z) -> uint32_t { return nibble(has_zero_byte(z)); };
 
-  uint32_t m0 = zero_bytes(filter(0)) & first_mask;
-  if (tmax == 0) m0 &= last_mask;
-  if (runs(0, nibble(m0), 0)) return make_int2(best, best_o);
-  int t = 1;
+  uint32_t m0 = zero_bytes(filter(tf)) & first_mask;
+  if (tmax == tf) m0 &= last_mask;
+  if (runs(tf, nibble(m0), tf)) return make_int2(best, best_o);
+  int t = tf + 1;
   for (; t + GROUP <= tmax; t += GROUP) {
     uint32_t z[GROUP];
     uint32_t h = 0;
@@ -194,8 +206,28 @@ __device__ __forceinline__ int2 sweep_position(const uint32_t* sw, int xi,
   for (; t < tmax; ++t) {
     if (runs(t, marks(filter(t)), t)) return make_int2(best, best_o);
   }
-  if (tmax > 0) runs(tmax, nibble(zero_bytes(filter(tmax)) & last_mask), tmax);
+  if (tmax > tf) runs(tmax, nibble(zero_bytes(filter(tmax)) & last_mask), tmax);
   return make_int2(best, best_o);
+}
+
+// Distances 1 .. dmax (dmax >= 1): step 0's bytes j >= a are distances
+// below 1.
+__device__ __forceinline__ int2 sweep_position(const uint32_t* sw, int xi,
+                                               int cap, int dmax) {
+  return sweep_steps(sw, xi, cap, 0, (1u << (8 * (xi & 3))) - 1u, dmax);
+}
+
+// Distances dmin .. dmax (dmin >= 1; (0, 0) when dmax < dmin): the first
+// step is tf = (dmin + 2 - a) / 4, the last whose bytes are not all at or
+// above dmin, and only its k = a + 4 tf - dmin + 1 (0..3) lowest bytes are
+// (for dmin = 1 that is step 0 with k = a: sweep_position).
+__device__ __forceinline__ int2 sweep_range(const uint32_t* sw, int xi,
+                                            int cap, int dmin, int dmax) {
+  if (dmax < dmin) return make_int2(0, 0);
+  const int a = xi & 3;
+  const int tf = (dmin + 2 - a) >> 2;
+  const int k = a + 4 * tf - dmin + 1;
+  return sweep_steps(sw, xi, cap, tf, (1u << (8 * k)) - 1u, dmax);
 }
 
 }  // namespace lz77

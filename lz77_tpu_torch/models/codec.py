@@ -22,6 +22,13 @@ Two encode pipelines, by name:
 * ``fused`` — the device-resident match + parse + pack (``models.fused``),
   byte-aligned token widths only.
 
+* ``sharded`` — the same per data shard of a device mesh, the shards'
+  walks chained through their entries (``parallel.sharded``), byte-aligned
+  widths only at file scale (:func:`encode_file`); its bytes entry point is
+  ``parallel.sharded.encode_bytes_sharded``.  The host pipeline takes a
+  sharded match phase through ``match_fn``
+  (``parallel.sharded.sharded_match_fn``).
+
 Decode picks a backend by name: ``device`` (the walk-decode kernel,
 ``ops.decode_walk``; file to file it is chained stage by stage at bounded
 host memory, :func:`decode_file_device`), ``device-chunked`` (the chunked
@@ -51,7 +58,8 @@ from . import fused
 
 DEFAULT_BLOCK_SIZE = fused.DEFAULT_BLOCK_SIZE
 DEFAULT_BATCH_BLOCKS = fused.DEFAULT_BATCH_BLOCKS
-PIPELINES = ("host", "fused")
+PIPELINES = ("host", "fused")  # codec.encode_bytes's
+FILE_PIPELINES = ("host", "fused", "sharded")  # encode_file's
 
 
 @dataclasses.dataclass
@@ -72,6 +80,14 @@ class EncodeStats:
     # that explains end-to-end throughput once the kernels are fast.
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    # Sharded pipeline (parallel/sharded.py): shards processed (those with
+    # valid bytes).  The resync counters are the JAX package's keys: its
+    # shards walk speculatively and splice; here every shard walks from its
+    # true entry, so they stay 0.
+    shards: int = 0
+    resyncs: int = 0
+    resync_head_tokens: int = 0
+    resync_bulk: int = 0
     phases: metrics_lib.PhaseTimes = dataclasses.field(
         default_factory=metrics_lib.PhaseTimes
     )
@@ -179,6 +195,7 @@ def iter_block_bits(
     phases: metrics_lib.PhaseTimes | None = None,
     stats: EncodeStats | None = None,
     device: str | torch.device | None = None,
+    match_fn=None,
 ):
     """Yield (block_index, entry, next_entry, token_count, chunk) per block.
 
@@ -193,8 +210,20 @@ def iter_block_bits(
     independent up to the scalar entry carry — SURVEY.md §5).  The host
     walks the parse in C (``native.parse_block``) and packs byte-aligned
     widths in C (``native.pack_tokens``), other widths in numpy.
+
+    ``match_fn(gb, gh, gr, ga, gv) -> (L, O)``, when given, replaces the
+    device match (``parallel.sharded.sharded_match_fn``): it gets each
+    batch's real rows as numpy arrays, and its full int32 tables are
+    fetched in place of the nibble-packed lengths and the offset gather.
+    A ``match_fn`` with a ``data_shards`` attribute needs ``batch_blocks``
+    to be a multiple of it.
     """
     matcher = match_ops.route_matcher(matcher)
+    if match_fn is not None:
+        from ..parallel import sharded as sharded_lib
+
+        sharded_lib.check_batch_blocks(
+            batch_blocks, getattr(match_fn, "data_shards", 1))
     dev = device_lib.resolve(device)
     n = x.shape[0]
     B = _host_block_size(block_size, n)
@@ -217,11 +246,13 @@ def iter_block_bits(
         arrs = _batch_inputs(x, n, g0, gn, gn, B, H, R)
         if stats is not None:
             stats.h2d_bytes += sum(a.nbytes for a in arrs)
+        if match_fn is not None:
+            return ("full", bi, gn, *match_fn(*arrs))
         packed, O16 = encoder_model.match_blocks_compact(
             *(torch.from_numpy(a).to(dev) for a in arrs),
             la=params.la, sb=params.sb, matcher=matcher,
         )
-        return bi, gn, packed, O16
+        return ("compact", bi, gn, packed, O16)
 
     def count_retry():
         if stats is not None:
@@ -230,12 +261,17 @@ def iter_block_bits(
     state = {"entry": entry}
 
     def process(handle):
-        bi, gn, packed, O16 = handle
+        kind, bi, gn, a1, a2 = handle
         g0 = bi * G
         with metrics_lib.StopwatchPhase(ph, "match"):
-            packed_np = packed.cpu().numpy()  # the only bulk fetch: ~B/2/block
+            if kind == "full":
+                Lg, Og = a1.cpu().numpy(), a2.cpu().numpy()
+                got = Lg.nbytes + Og.nbytes
+            else:
+                packed_np = a1.cpu().numpy()  # the only bulk fetch: ~B/2/block
+                got = packed_np.nbytes
             if stats is not None:
-                stats.d2h_bytes += packed_np.nbytes
+                stats.d2h_bytes += got
         all_starts: list[np.ndarray] = []
         all_lens: list[np.ndarray] = []
         entries: list[tuple[int, int]] = []
@@ -243,7 +279,8 @@ def iter_block_bits(
             for i in range(gn):
                 gs = (g0 + i) * B
                 vl = min(B, n - gs)
-                L = encoder_model.unpack_lengths(packed_np[i], B, la)
+                L = (Lg[i] if kind == "full" else
+                     encoder_model.unpack_lengths(packed_np[i], B, la))
                 e_in = state["entry"]
                 starts, exit_pos = native_lib.parse_block(L, vl, e_in)
                 state["entry"] = max(0, exit_pos - B)
@@ -254,13 +291,16 @@ def iter_block_bits(
         counts = [s.shape[0] for s in all_starts]
         if sum(counts) == 0:
             off_cat = np.zeros(0, np.int64)
+        elif kind == "full":
+            off_cat = np.concatenate(
+                [Og[i][all_starts[i]] for i in range(gn)])
         else:
             with metrics_lib.StopwatchPhase(ph, "match"):
                 flat = np.concatenate(
                     [i * B + s for i, s in enumerate(all_starts)]
                 ).astype(np.int32)
                 off_cat = encoder_model.gather_offsets(
-                    O16, torch.from_numpy(flat).to(dev)
+                    a2, torch.from_numpy(flat).to(dev)
                 ).cpu().numpy()
                 if stats is not None:
                     stats.h2d_bytes += flat.nbytes
@@ -319,6 +359,7 @@ def encode_bytes(
     stats: EncodeStats | None = None,
     retries=_NOT_GIVEN,
     fault_injector=_NOT_GIVEN,
+    match_fn=_NOT_GIVEN,
     device: str | torch.device | None = None,
 ) -> bytes:
     """Compress ``data`` into a complete reference-format stream.
@@ -326,9 +367,12 @@ def encode_bytes(
     ``pipeline``: "fused" (device-resident, byte-aligned widths; takes
     ``sub_block``, int or None; its one matcher is ``sweep``) or "host"
     (device match + host parse, any width; takes ``matcher``, ``retries``
-    (default 2), ``fault_injector``).  Both emit the same stream.  A
-    matcher the fused pipeline does not run raises ``ValueError``; an
-    argument the chosen pipeline does not take raises ``TypeError``.
+    (default 2), ``fault_injector`` and ``match_fn``, a replacement for its
+    match phase such as ``parallel.sharded.sharded_match_fn``).  Both emit
+    the same stream.  A matcher the fused pipeline does not run raises
+    ``ValueError``; an argument the chosen pipeline does not take raises
+    ``TypeError``.  The sharded pipeline's bytes entry point is
+    ``parallel.sharded.encode_bytes_sharded``.
     """
     if pipeline == "fused":
         if match_ops.route_matcher(matcher) != "sweep":
@@ -336,7 +380,8 @@ def encode_bytes(
                 "pipeline 'fused' has one matcher, 'sweep'; "
                 f"use pipeline='host' for matcher {matcher!r}"
             )
-        _refuse(pipeline, retries=retries, fault_injector=fault_injector)
+        _refuse(pipeline, retries=retries, fault_injector=fault_injector,
+                match_fn=match_fn)
         return fused.encode_bytes_fused(
             data, params, block_size=block_size, batch_blocks=batch_blocks,
             sub_block=None if sub_block is _NOT_GIVEN else sub_block,
@@ -350,6 +395,8 @@ def encode_bytes(
     retries = 2 if retries is _NOT_GIVEN else retries
     if fault_injector is _NOT_GIVEN:
         fault_injector = None
+    if match_fn is _NOT_GIVEN:
+        match_fn = None
     params = params or spec.Params()
     x = np.frombuffer(data, dtype=np.uint8)
     n = x.shape[0]
@@ -365,6 +412,7 @@ def encode_bytes(
                 x, params, block_size=block_size, batch_blocks=batch_blocks,
                 matcher=matcher, retries=retries,
                 fault_injector=fault_injector, stats=st, device=device,
+                match_fn=match_fn,
             ):
                 total_tokens += c
                 if chunk.shape[0]:
@@ -473,6 +521,7 @@ def encode_file(
     retries: int = 2,
     fault_injector: faults_lib.FaultInjector | None = None,
     pipeline: str = "host",
+    mesh=None,
     device: str | torch.device | None = None,
 ) -> None:
     """File-to-file encode with optional checkpoint/resume.
@@ -490,31 +539,31 @@ def encode_file(
     stream is assembled bit-contiguously, then scratch files are removed.
 
     ``pipeline``: 'host' = device match + host parse (any token width);
-    'fused' = the device-resident match+parse+pack pipeline, which
-    checkpoints at BATCH granularity (one manifest record per device batch)
-    and requires a byte-aligned token width.  The multi-device 'sharded'
-    pipeline of the JAX package is not ported yet.
+    'fused' = the device-resident match+parse+pack pipeline; 'sharded' =
+    the same over the data shards of ``mesh`` (``parallel.mesh``; default:
+    a one-member mesh on ``device`` when one is given, else every visible
+    card), each shard's walk chained from the one before.  The fused and
+    sharded pipelines checkpoint at BATCH granularity (one manifest record
+    per device batch) and require a byte-aligned token width.
     """
     _t0 = time.perf_counter()
     params = params or spec.Params()
-    if pipeline == "sharded":
-        raise ValueError(
-            "pipeline 'sharded' (multi-device) is not ported yet; "
-            "use 'host' or 'fused'"
-        )
-    if pipeline not in PIPELINES:
+    if pipeline not in FILE_PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}")
-    if pipeline == "fused":
-        if match_ops.route_matcher(matcher) != "sweep":
-            raise ValueError(
-                "pipeline 'fused' has one matcher, 'sweep'; "
-                f"use pipeline='host' for matcher {matcher!r}"
-            )
+    if pipeline != "sharded" and mesh is not None:
+        raise TypeError(f"pipeline {pipeline!r} takes no mesh argument")
+    if pipeline == "fused" and match_ops.route_matcher(matcher) != "sweep":
+        raise ValueError(
+            "pipeline 'fused' has one matcher, 'sweep'; "
+            f"use pipeline='host' for matcher {matcher!r}"
+        )
+    if pipeline != "host":
         return _encode_file_batched(
-            in_path, out_path, params, block_size=block_size,
-            batch_blocks=batch_blocks, stats=stats,
-            manifest_path=manifest_path, resume=resume,
-            fault_injector=fault_injector, device=device,
+            in_path, out_path, params, pipeline=pipeline,
+            block_size=block_size, batch_blocks=batch_blocks,
+            matcher=matcher, stats=stats, manifest_path=manifest_path,
+            resume=resume, fault_injector=fault_injector, mesh=mesh,
+            device=device,
         )
     dev = device_lib.resolve(device)
     n = os.path.getsize(in_path)
@@ -672,30 +721,53 @@ def _encode_file_batched(
     out_path: str,
     params: spec.Params,
     *,
+    pipeline: str,
     block_size: int | None,
     batch_blocks: int,
+    matcher: str,
     stats: EncodeStats | None,
     manifest_path: str | None,
     resume: bool,
     fault_injector: faults_lib.FaultInjector | None,
+    mesh,
     device: str | torch.device | None,
 ) -> None:
-    """File-to-file encode through the fused device pipeline.
+    """File-to-file encode through the fused or sharded device pipeline.
 
-    The device-resident pipeline (match + parse + pack on the device) at
+    The device-resident pipelines (match + parse + pack on the device) at
     file scale: memmap input with page release, payload bytes appended as
     each batch lands, one manifest record per BATCH (the device step's
     natural checkpoint unit).  Replaces lz77.c:89-136 + 246-251 for inputs
     larger than RAM.
     """
     _t0 = time.perf_counter()
-    pipeline = "fused"
     if params.width % 8 != 0:
         raise ValueError(
             f"pipeline={pipeline!r} requires a byte-aligned token width "
             f"(width={params.width}); use pipeline='host'"
         )
-    dev = device_lib.resolve(device)
+    if pipeline == "sharded":
+        from ..parallel import mesh as mesh_lib
+        from ..parallel import sharded as sharded_lib
+
+        mesh = sharded_lib.resolve_mesh(mesh, device)
+        sharded_lib.check_batch_blocks(batch_blocks,
+                                       mesh.shape[mesh_lib.DATA_AXIS])
+
+        def make_iter(start_batch: int, entry: int):
+            return sharded_lib.iter_batches_sharded(
+                x, params, mesh=mesh, block_size=block_size,
+                batch_blocks=batch_blocks, matcher=matcher,
+                start_batch=start_batch, entry=entry, stats=st,
+            )
+    else:
+        dev = device_lib.resolve(device)
+
+        def make_iter(start_batch: int, entry: int):
+            return fused.iter_batches_fused(
+                x, params, block_size=block_size, batch_blocks=batch_blocks,
+                start_batch=start_batch, entry=entry, stats=st, device=dev,
+            )
     n = os.path.getsize(in_path)
     x = (
         np.memmap(in_path, dtype=np.uint8, mode="r")
@@ -713,10 +785,7 @@ def _encode_file_batched(
 
     def run_batches(sink, start_batch: int, entry: int, on_batch=None):
         total_tokens = 0
-        for bi, e_in, e_out, tok, payload in fused.iter_batches_fused(
-            x, params, block_size=block_size, batch_blocks=batch_blocks,
-            start_batch=start_batch, entry=entry, stats=st, device=dev,
-        ):
+        for bi, e_in, e_out, tok, payload in make_iter(start_batch, entry):
             if fault_injector is not None:
                 fault_injector.check(bi)
             total_tokens += tok

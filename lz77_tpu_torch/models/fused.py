@@ -367,22 +367,38 @@ def iter_batches_fused(
                 stats.d2h_bytes += nbytes + 8
         return bi, e_in, ex, tot, buf
 
+    yield from two_deep(submit, fetch, range(start_batch, num_batches),
+                        entry, device=dev, phases=ph, stats=stats,
+                        retries=retries)
+
+
+def two_deep(submit, fetch, batches, entry: int, *, device, phases, stats,
+             retries: int):
+    """The device pipelines' two-deep loop over ``batches``: batch k+1 is
+    submitted before batch k is fetched, and the parse entry rides from
+    batch to batch as a (1,) int32 tensor on ``device``.
+
+    ``submit(bi, entry_dev)`` launches a batch and returns its handle, whose
+    last item is the batch's exit entry on the device; ``fetch(handle,
+    e_in)`` returns the batch's ``(bi, e_in, e_out, ...)``, which is
+    yielded.  Each is retried ``retries`` times (``stats.retries`` counts
+    them): batches are independent up to the entry, and a retried submit
+    reads the previous batch's exit tensor again, still live because the
+    kernels only read it (SURVEY.md §5).
+    """
     def count_retry():
         if stats is not None:
             stats.retries += 1
 
-    entry_dev = torch.tensor([entry], dtype=torch.int32, device=dev)
+    entry_dev = torch.tensor([entry], dtype=torch.int32, device=device)
     e_in = int(entry)
     pending = None
-    for bi in range(start_batch, num_batches):
-        with metrics_lib.StopwatchPhase(ph, "io"):
-            # Failed device batches retry (SURVEY.md §5): batches are
-            # independent up to the entry, which submit reads from the
-            # previous batch's still-live device tensor.
+    for bi in batches:
+        with metrics_lib.StopwatchPhase(phases, "io"):
             nxt = faults_lib.with_retries(
                 submit, bi, entry_dev, retries=retries, on_retry=count_retry
             )
-            entry_dev = nxt[3]
+            entry_dev = nxt[-1]
         if pending is not None:
             out = faults_lib.with_retries(
                 fetch, pending, e_in, retries=retries, on_retry=count_retry

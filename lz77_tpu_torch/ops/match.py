@@ -37,6 +37,13 @@ for four distances, where a distance at a time took some thirty-four and
 eight byte loads.  :func:`match_sweep_words_plain` is the same
 decomposition in tensors.  It covers la 2..255 and sb 1..65535 itself;
 there is no second formulation to give way to.
+
+The sweep also takes a range of distances ``[d_lo, d_hi)``: the window
+axis of a sharded encode (``parallel.sharded``) gives each mesh member one
+range, and the members' tables meet through :func:`combine_key`'s max.  A
+ranged sweep starts at the word step that holds ``d_lo`` (masked below it
+as step 0 is masked below 1) and stages only the ``d_hi - 1`` window bytes
+it can reach; the full range runs the unranged code that K5 shares.
 """
 
 from __future__ import annotations
@@ -70,17 +77,21 @@ def match_sweep_plain(
     *,
     la: int,
     sb: int,
+    d_lo: int = 1,
+    d_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the sweep: same inputs, same (L, O).
 
-    One pass per distance over the whole (G, B) batch; run lengths by
-    doubling (log2(la) shifted adds), so a deep ``la`` costs no more passes.
-    Distances no position can reach (``d > max(pos + avail)``) are skipped.
+    One pass per distance of ``[d_lo, d_hi)`` (see :func:`distance_range`)
+    over the whole (G, B) batch; run lengths by doubling (log2(la) shifted
+    adds), so a deep ``la`` costs no more passes.  Distances no position can
+    reach (``d > max(pos + avail)``) are skipped.
     """
     G, B = blocks.shape
     H = halos.shape[1]
     depth = spec.len_limit(la)
     dlim = spec.d_limit(sb)
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
     dev = blocks.device
     ext = 1
     while ext < depth:
@@ -95,8 +106,8 @@ def match_sweep_plain(
     X = buf[:, H : H + B + ext]
     best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
     best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
-    dmax = min(dlim, int(reach.max())) if G * B else 0
-    for d in range(1, dmax + 1):
+    dmax = min(d_hi - 1, int(reach.max())) if G * B else 0
+    for d in range(d_lo, dmax + 1):
         runs = capped_runs(X, buf[:, H - d : H - d + B + ext], depth, cap)
         runs = torch.where(reach >= d, runs, -1)
         upd = runs > best_l
@@ -119,42 +130,51 @@ def match_sweep_words_plain(
     *,
     la: int,
     sb: int,
+    d_lo: int = 1,
+    d_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version under the kernel's decomposition; same (L, O).
 
-    Position p sits at byte index ``d_limit + p`` of the staged window
-    (modulo the tile, a multiple of 4), so its alignment phase is
-    ``a = (d_limit + p) % 4`` and its word step ``t`` holds the distances
-    ``a + 4t - j``, ``j`` = 3..0.  Steps run from 0 to
-    ``tmax = (dmax + 3 - a) // 4``; step 0 masks its bytes ``j >= a``
-    (distances below 1), step ``tmax`` its bytes ``j < a + 4 tmax - dmax``
-    (beyond dmax), with the kernel's formulas.  Steps 1 onwards go in
-    groups of :data:`SWEEP_GROUP` while a whole group lies before ``tmax``,
-    then one at a time.  Every distance of a group (or lone step) is
-    filtered with the best run current when the group began (first byte,
-    and the byte at index ``best``); the marked ones measure their capped
-    run (by doubling) nearest first and update the best as they go; a
-    position whose best run has reached its cap takes no further distance.
-    One tensor pass per distance, from -3 (step 0's lowest byte) to the
-    last step's highest, so a mask that let a distance outside 1..dmax
-    through would show in the tables.
+    The tile stages ``win = min(d_limit, d_hi - 1)`` window bytes (all
+    ``d_limit`` of them for the full range), so position p sits at byte
+    index ``win + p`` of the staged window (modulo the tile, a multiple of
+    4), its alignment phase is ``a = (win + p) % 4`` and its word step
+    ``t`` holds the distances ``a + 4t - j``, ``j`` = 3..0.  Steps run from
+    ``tf = (d_lo + 2 - a) // 4`` (0 for ``d_lo = 1``) to
+    ``tmax = (dmax + 3 - a) // 4``; step ``tf`` keeps only its bytes
+    ``j < a + 4 tf - d_lo + 1`` (distances from ``d_lo`` up), step ``tmax``
+    its bytes ``j >= a + 4 tmax - dmax`` (up to dmax), with the kernel's
+    formulas.  Steps from ``tf + 1`` go in groups of :data:`SWEEP_GROUP`
+    while a whole group lies before ``tmax``, then one at a time.  Every
+    distance of a group (or lone step) is filtered with the best run
+    current when the group began (first byte, and the byte at index
+    ``best``); the marked ones measure their capped run (by doubling)
+    nearest first and update the best as they go; a position whose best run
+    has reached its cap takes no further distance.  One tensor pass per
+    distance, from ``d_lo - 3`` (step ``tf``'s lowest byte at most) to the
+    last step's highest, so a mask that let a distance outside
+    ``d_lo..dmax`` through would show in the tables.
     """
     G, B = blocks.shape
     H = halos.shape[1]
     depth = spec.len_limit(la)
     dlim = spec.d_limit(sb)
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
+    win = min(dlim, d_hi - 1)
     dev = blocks.device
     ext = 1
     while ext < depth:
         ext <<= 1
     pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
     cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
-    dmax = torch.clamp(pos + avails[:, None], max=dlim)
-    a = (dlim + pos) % 4
+    dmax = torch.clamp(pos + avails[:, None], max=win)
+    a = (win + pos) % 4
+    tf = torch.div(d_lo + 2 - a, 4, rounding_mode="floor")
+    k = a + 4 * tf - d_lo + 1  # step tf's bytes j < k are at d_lo or above
     tmax = torch.div(dmax + 3 - a, 4, rounding_mode="floor")
     lo = a + 4 * tmax - dmax
-    grouped_to = SWEEP_GROUP * torch.div(torch.clamp(tmax - 1, min=0),
-                                         SWEEP_GROUP, rounding_mode="floor")
+    grouped_to = tf + SWEEP_GROUP * torch.div(
+        torch.clamp(tmax - tf - 1, min=0), SWEEP_GROUP, rounding_mode="floor")
     pad = 3  # step 0 reaches 3 bytes past the position, the last 3 before
     buf = torch.cat(
         [torch.zeros((G, pad), dtype=torch.uint8, device=dev), halos, blocks,
@@ -166,17 +186,20 @@ def match_sweep_words_plain(
     best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
     best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
     step_best = torch.zeros((G, B), dtype=torch.int64, device=dev)
-    d_top = int((a + 4 * tmax).max()) if G * B else -4
-    for d in range(-3, d_top + 1):
+    # no step for a position with nothing in range (the kernel returns
+    # (0, 0) at once); its tmax < tf then
+    live = dmax >= d_lo
+    d_top = int((a + 4 * tmax).max()) if G * B else d_lo - 4
+    for d in range(d_lo - 3, d_top + 1):
         t4 = d - a + 3  # 4t + 3 - j
         t = torch.div(t4, 4, rounding_mode="floor")
         j = a + 4 * t - d
-        in_step = (t4 >= 0) & (t <= tmax)
-        valid = (in_step & ((t > 0) | (j < a)) & ((t < tmax) | (j >= lo))
+        in_step = live & (t >= tf) & (t <= tmax)
+        valid = (in_step & ((t > tf) | (j < k)) & ((t < tmax) | (j >= lo))
                  & (best_l < cap))
         # the filter's best is renewed at a group's (or lone step's) start
-        grouped = (t >= 1) & (t <= grouped_to)
-        starts = (j == 3) & (~grouped | ((t - 1) % SWEEP_GROUP == 0))
+        grouped = (t >= tf + 1) & (t <= grouped_to)
+        starts = (j == 3) & (~grouped | ((t - tf - 1) % SWEEP_GROUP == 0))
         step_best = torch.where(in_step & starts, best_l.to(torch.int64),
                                 step_best)
         Y = buf[:, pad + H - d : pad + H - d + B + ext]
@@ -189,6 +212,32 @@ def match_sweep_words_plain(
         best_l = torch.where(upd, runs, best_l)
         best_o = torch.where(upd, d, best_o)
     return best_l, best_o
+
+
+def distance_range(dlim: int, d_lo: int = 1,
+                   d_hi: int | None = None) -> tuple[int, int]:
+    """The searched distances ``[d_lo, d_hi)`` clipped as the JAX package's
+    ``find_matches_brute_range`` clips them: ``d_lo`` into ``[1, dlim + 1]``,
+    ``d_hi`` (``None``: ``dlim + 1``) into ``[d_lo, dlim + 1]``; empty when
+    ``d_lo == d_hi``."""
+    lo = min(max(int(d_lo), 1), dlim + 1)
+    hi = dlim + 1 if d_hi is None else min(max(int(d_hi), lo), dlim + 1)
+    return lo, hi
+
+
+def combine_key(L: torch.Tensor, O: torch.Tensor, dlim: int) -> torch.Tensor:
+    """Order-preserving int32 key of (L, O): the longer run wins, then the
+    smaller distance (``L * (dlim + 2) + dlim + 1 - O`` < 2^24), so the
+    elementwise max of partial tables over distance ranges is the table
+    over their union."""
+    return L.to(torch.int32) * (dlim + 2) + (dlim + 1 - O.to(torch.int32))
+
+
+def split_key(key: torch.Tensor, dlim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, O) int32 from :func:`combine_key`'s key; O is 0 where L is 0."""
+    L = torch.div(key, dlim + 2, rounding_mode="floor")
+    O = (dlim + 1) - torch.remainder(key, dlim + 2)
+    return L, torch.where(L > 0, O, 0)
 
 
 def check_batch(blocks, halos, rights, avails, valid_exts, dlim: int,
@@ -224,9 +273,14 @@ def match_sweep(
     *,
     la: int,
     sb: int,
+    d_lo: int = 1,
+    d_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 wrapper: (L, O) int32 (G, B) tables for a batch of blocks.
 
+    Only the distances ``[d_lo, d_hi)`` are searched (default: all of
+    ``1..d_limit``; clipped by :func:`distance_range`): the longest run in
+    the range, its nearest distance, (0, 0) where nothing in it matches.
     CUDA tensors launch ``match_kernel`` (or raise); CPU tensors run
     :func:`match_sweep_plain`.  ``match_sweep.launches`` counts launches.
     """
@@ -234,12 +288,14 @@ def match_sweep(
     dlim = spec.d_limit(sb)
     G, B = blocks.shape
     check_batch(blocks, halos, rights, avails, valid_exts, dlim, depth)
-    if dlim == 0 or depth == 0 or G * B == 0:
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
+    if dlim == 0 or depth == 0 or G * B == 0 or d_lo == d_hi:
         z = torch.zeros((G, B), dtype=torch.int32, device=blocks.device)
         return z, z.clone()
     if not blocks.is_cuda:
         return match_sweep_plain(
-            blocks, halos, rights, avails, valid_exts, la=la, sb=sb
+            blocks, halos, rights, avails, valid_exts, la=la, sb=sb,
+            d_lo=d_lo, d_hi=d_hi,
         )
     lib = _build.kernels()
     L = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
@@ -248,7 +304,7 @@ def match_sweep(
         err = lib.lz77_match(
             blocks.data_ptr(), halos.data_ptr(), rights.data_ptr(),
             avails.data_ptr(), valid_exts.data_ptr(),
-            L.data_ptr(), O.data_ptr(), G, B, dlim, depth,
+            L.data_ptr(), O.data_ptr(), G, B, dlim, depth, d_lo, d_hi,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "match_kernel")

@@ -4,7 +4,8 @@ Both ``main(argv)`` run in-process on the same files: same exit code, same
 stderr text for every validation error, same stdout, same output file.  The
 port's runs add ``--device cpu`` (its kernels' plain PyTorch versions); what
 the two surfaces name differently (``--backend device`` for ``jax``, the
-matcher names, ``--device`` for ``--platform``) is pinned here too.
+matcher names, ``--device`` for ``--platform``) is pinned here too.  The
+JAX CLI's ``--pipeline sharded`` runs on its virtual 8-device CPU mesh.
 """
 
 import json
@@ -338,10 +339,40 @@ def test_xla_matcher_names_exit_1(scratch, capsys, name):
 def test_multi_device_flags_are_parsed_and_answered_with_exit_1(
     scratch, capsys, extra
 ):
-    rc, _, err = run(cli.main, ["-c", "-i", scratch["in"], "-o",
-                                scratch["out"]] + extra + CPU, capsys)
-    assert rc == 1 and "multi-device pipeline" in err and "--mesh" in err
-    assert not os.path.exists(scratch["out"])
+    """The multi-device flags since the sharded pipeline landed: the JAX
+    CLI's exit code for each argv (only the bad ``--mesh`` exits 1, with the
+    JAX text), and the serial stream from each that encodes; a 4x2 mesh of
+    eight CPU members too.  The name dates from when the flags were
+    refused."""
+    argv = ["-c", "-i", scratch["in"], "-o", scratch["out"]] + extra
+    ref = run(jax_cli.main, argv, capsys)
+    ref_stream = None
+    if os.path.exists(scratch["out"]):
+        with open(scratch["out"], "rb") as f:
+            ref_stream = f.read()
+        os.unlink(scratch["out"])
+    got = run(cli.main, argv + CPU, capsys)
+    assert got[0] == ref[0] == (1 if "banana" in extra else 0)
+    with open(scratch["in"], "rb") as f:
+        want = native.encode(f.read(), spec.Params())
+    if ref[0]:
+        assert got[2] == ref[2] == (
+            "Encode error: --mesh must look like '4x2', got 'banana'\n")
+        assert not os.path.exists(scratch["out"])
+        return
+    with open(scratch["out"], "rb") as f:
+        assert f.read() == ref_stream == want
+    if extra == ["--pipeline", "sharded"]:
+        rc, _, err = run(cli.main, argv + ["--host-devices", "8", "--mesh",
+                                           "4x2", "--device", "cpu",
+                                           "--block-size", "256",
+                                           "--report"], capsys)
+        rep = json.loads(err.strip().splitlines()[-1])
+        with open(scratch["out"], "rb") as f:
+            assert rc == 0 and f.read() == want
+        assert rep["pipeline"] == "sharded" and rep["shards"] == 4
+        assert rep["resyncs"] == rep["resync_head_tokens"] == 0
+        assert rep["resync_bulk"] == 0 and rep["h2d_bytes"] > 0
 
 
 def test_no_card_is_an_error_not_a_fallback(scratch, capsys):

@@ -18,6 +18,8 @@ from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
+from lz77_tpu_torch.parallel import mesh as mesh_lib
+from lz77_tpu_torch.parallel import sharded
 
 torch.set_num_threads(1)
 
@@ -44,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "lz77_tpu_torch.ops.pack", "lz77_tpu_torch.ops.decode",
             "lz77_tpu_torch.models.decoder", "lz77_tpu_torch.corpus",
             "lz77_tpu_torch.dump", "lz77_tpu_torch.conformance",
-            "lz77_tpu_torch.experiments.coissue"} <= set(names)
+            "lz77_tpu_torch.experiments.coissue",
+            "lz77_tpu_torch.parallel.mesh",
+            "lz77_tpu_torch.parallel.sharded"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -110,13 +114,23 @@ def test_default_device_raises_without_a_card():
         lambda: coissue.probe(),
         lambda: conformance.run_conformance(1, "device"),
         lambda: conformance.run_big_streamed(1e-6, "."),
+        lambda: mesh_lib.make_mesh(),
+        lambda: sharded.encode_bytes_sharded(b"abc"),
+        lambda: sharded.encode_bytes_sharded(b"abc", device="cuda"),
+        lambda: codec.encode_bytes(
+            b"abc", pipeline="host", match_fn=sharded.sharded_match_fn(
+                mesh_lib.make_mesh(4, 2, devices=["cuda"] * 8),
+                lz77_tpu_torch.Params())),
+        lambda: codec.encode_file(__file__, os.devnull, pipeline="sharded"),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
          "iter_block_bits", "decode_tokens_walk_packed",
          "encode_batch_sweepwalk", "encode_bytes_fused_merged",
          "encode_bytes_fused_scan", "encode_batch_device", "coissue_call_v",
-         "coissue_probe", "run_conformance", "run_big_streamed"],
+         "coissue_probe", "run_conformance", "run_big_streamed",
+         "make_mesh", "encode_bytes_sharded", "encode_bytes_sharded_cuda",
+         "sharded_match_fn", "encode_file_sharded"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
@@ -142,7 +156,7 @@ def test_file_entry_points_raise_without_a_card(tmp_path):
     ip.write_bytes(b"file entry points run on the card " * 9)
     sp = tmp_path / "s.lz"
     sp.write_bytes(lz77_tpu.compress(ip.read_bytes(), backend="numpy"))
-    for pipeline in ("host", "fused"):
+    for pipeline in ("host", "fused", "sharded"):
         with pytest.raises(RuntimeError, match="CUDA"):
             lz77_tpu_torch.compress_file(str(ip), str(tmp_path / "o"),
                                          pipeline=pipeline)
