@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives six paths, each once, with the kernels'
+shape, times both, and then drives seven paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -42,7 +42,24 @@ launch counts set to 0 just before and read just after:
   "sharded")`` on 4x2 killed after two batches and resumed; the CLI's
   ``--pipeline sharded`` (default mesh, ``--device cuda --host-devices 8
   --mesh 4x2``, ``-l 8 -s 500`` on 8 MiB); the host pipeline with the 4x2
-  mesh's ``sharded_match_fn`` on 8 MiB.
+  mesh's ``sharded_match_fn`` on 8 MiB;
+* the multi-process path (``parallel.distributed``): local ranks of
+  ``python -m lz77_tpu_torch.parallel.distributed`` on a Gloo group at
+  localhost, every rank on cuda:0 (NCCL refuses two ranks on one card):
+  ``encode_bytes_multihost`` of the same input on 1 (the distributed code
+  in a world of one), 2 and 4 ranks (the fused route: K1 and the scan
+  parser), each rank's K1 launches one a batch of its range;
+  ``encode_file_multihost`` on 4 ranks at the defaults and at la 15, sb
+  300 on 8 MiB (21-bit tokens: the host route and the partial-byte merge)
+  with the sweep (K1) and the chunk matcher (K4); a fault on batch 0
+  retried; runs of zeros across every rank boundary (each later rank
+  re-runs its range); every stream equal to ``native.encode``'s, the first
+  decoded by ``decompress`` (K3); then both big-run drivers
+  (``experiments.multihost_bigrun`` on 1 and 2 ranks and
+  ``experiments.bigrun_r5``) at 0.125 GiB.  Its line carries each
+  run's rank reports, MB/s by rank count (input bytes over the slowest
+  rank's wall) and the scaling efficiency against one rank: ranks that
+  share one card measure contention on it, not scaling across cards.
 
 K1 over a range of distances (the window axis) is held against its plain
 version on splits of 2, 3 and 4 members at la 2 / 15 / 255 x sb 15 / 4095
@@ -122,9 +139,9 @@ from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
+from lz77_tpu_torch.parallel import distributed, sharded
 from lz77_tpu_torch.parallel import mesh as mesh_lib
-from lz77_tpu_torch.parallel import sharded
-from lz77_tpu_torch.utils import faults, profiling
+from lz77_tpu_torch.utils import faults, metrics, profiling
 
 HBM_BYTES_PER_S = 3.35e12
 # Byte compares are integer ALU work outside the tensor cores.  Assumed peak:
@@ -191,6 +208,8 @@ SHARDED_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                         "walk_decode_kernel")
 # (data, win) shapes of the sharded path's meshes, every member on cuda:0
 SHARDED_MESHES = ((1, 1), (8, 1), (4, 2))
+# GiB the two big-run drivers encode (multihost_bigrun, bigrun_r5)
+BIG_RUN_GB = 0.125
 
 
 def emit(obj) -> None:
@@ -1187,6 +1206,150 @@ def drive_sharded_path(data: bytes, ref_stream: bytes, tmp: str):
     return rec, total
 
 
+# the kernels the multi-process path must launch: K1 in the ranks (both
+# routes), K4 in the ranks (host route, matcher chunk), K3 in this process
+MULTIHOST_PATH_KERNELS = ("match_kernel", "match_chunk_kernel",
+                          "walk_decode_kernel")
+RANK_KERNELS = ("match_kernel", "match_chunk_kernel")
+
+
+def drive_multihost_path(data: bytes, ref_stream: bytes, tmp: str):
+    """The multi-process encode (``parallel.distributed``): every run is
+    local ranks of ``python -m lz77_tpu_torch.parallel.distributed`` on a
+    Gloo group at localhost, every rank on cuda:0, and every stream is
+    checked against ``native.encode`` of the same input (and against the
+    library path's stream where there is one).  The kernels and the native
+    library are built before: ranks only load them.  Returns (record,
+    launches over the phase: K1 and K4 from the ranks' reports, K3 from
+    this process's decode)."""
+    G = codec.DEFAULT_BATCH_BLOCKS
+    B = codec.DEFAULT_BLOCK_SIZE
+    inp = os.path.join(tmp, "mh_in")
+    with open(inp, "wb") as f:
+        f.write(data)
+    rank_launches = {k: 0 for k in RANK_KERNELS}
+    runs = {}
+
+    def run(name, src, want, nproc, args=()):
+        out = os.path.join(tmp, f"mh_{name}.lz")
+        t0 = time.perf_counter()
+        reports = distributed.launch(["-i", src, "-o", out, *args], nproc,
+                                     timeout=600)
+        wall = time.perf_counter() - t0
+        got = read(out)
+        if got != want:
+            raise AssertionError(f"multihost {name}: stream != native.encode")
+        for r in reports:
+            for k in RANK_KERNELS:
+                rank_launches[k] += r["launches"][k]
+        slowest = max(r["wall"] for r in reports)
+        n = os.path.getsize(src)
+        runs[name] = {
+            "nproc": nproc, "args": list(args), "input_bytes": n,
+            "launcher_wall_s": wall, "slowest_rank_wall_s": slowest,
+            "MB_s": n / slowest / 1e6, "ranks": reports,
+            "stream_equals_native": True,
+        }
+        return runs[name], got
+
+    # 1. encode_bytes_multihost of the whole input at the reference
+    #    defaults (the fused route: K1 + the scan parser), on 1 (the
+    #    distributed code in a world of one), 2 and 4 ranks
+    nblocks = -(-len(data) // B)
+    for nproc in (1, 2, 4):
+        rec, stream = run(f"bytes_{nproc}", inp, ref_stream, nproc,
+                          ["--mode", "bytes"] + (["--force"] if nproc == 1
+                                                 else []))
+        # a rank's K1 launches: one a batch of its range, twice where the
+        # range was re-run from its true entry
+        for r in rec["ranks"]:
+            lo, hi = distributed.block_range(nblocks, nproc, r["rank"])
+            want = -(-(hi - lo) // G) * (2 if r["resync_bulk"] else 1)
+            if r["launches"]["match_kernel"] != want:
+                raise AssertionError(f"bytes_{nproc} rank {r['rank']}: "
+                                     f"{r['launches']}, want {want} K1")
+    # 5. the decode of run 1's stream with decompress (K3)
+    if lt.decompress(stream) != data:
+        raise AssertionError("decompress(multihost stream) != input")
+
+    # 2. encode_file_multihost on 4 ranks: the defaults (fused route), then
+    #    Params(15, 300) on 8 MiB (21-bit tokens: the host route and the
+    #    partial-byte merge) with K1 and with K4
+    run("file_4", inp, ref_stream, 4, ["--mode", "file"])
+    small = os.path.join(tmp, "mh_in8")
+    with open(small, "wb") as f:
+        f.write(data[: 8 << 20])
+    p21 = spec.Params(15, 300)
+    want21 = native.encode(data[: 8 << 20], p21)
+    for matcher in ("sweep", "chunk"):
+        rec, _ = run(f"file_4_l15_s300_{matcher}", small, want21, 4,
+                     ["--mode", "file", "-l", "15", "-s", "300",
+                      "--matcher", matcher])
+        # 8 one-MiB blocks over 4 ranks: one batch a rank, one launch of
+        # the matcher's kernel each and none of the other's
+        k = "match_chunk_kernel" if matcher == "chunk" else "match_kernel"
+        want = {o: 1 if o == k else 0 for o in RANK_KERNELS}
+        if any(r["launches"] != want for r in rec["ranks"]):
+            raise AssertionError(f"{matcher}: {rec['ranks']}, want {want}")
+    # 3. an injected fault on batch 0 of rank 0, retried
+    rec, _ = run("fault_2", inp, ref_stream, 2,
+                 ["--mode", "bytes", "--fail-batches", "0:1"])
+    if rec["ranks"][0]["retries"] != 1:
+        raise AssertionError(f"fault run: {rec['ranks'][0]}")
+    # 4. runs of zeros across every rank boundary, entered mid-token: the
+    #    chains never meet, so each later rank re-runs its range
+    rng = np.random.default_rng(5)
+    runs_data = b"".join(bytes(9000 * 64) + make_text(rng, 5000 * 64)
+                         .tobytes() for _ in range(4))
+    rsrc = os.path.join(tmp, "mh_runs")
+    with open(rsrc, "wb") as f:
+        f.write(runs_data)
+    rec, _ = run("never_resync_4", rsrc, native.encode(runs_data), 4,
+                 ["--mode", "bytes"])
+    if sum(r["resync_bulk"] for r in rec["ranks"]) < 1:
+        raise AssertionError(f"no rank re-ran its range: {rec['ranks']}")
+
+    one = runs["bytes_1"]["MB_s"]
+    rec = {
+        "input_bytes": len(data), "la": 15, "sb": 4095, "block_size": B,
+        "batch_blocks": G, "device": "cuda:0 (every rank)",
+        "note": ("ranks share one card and its SMs: MB/s at 2 and 4 ranks "
+                 "measure contention on it, not scaling across cards"),
+        "MB_s_by_ranks": {n: runs[f"bytes_{n}"]["MB_s"] for n in (1, 2, 4)},
+        "scaling_efficiency": {
+            n: metrics.scaling_efficiency(runs[f"bytes_{n}"]["MB_s"], one, n)
+            for n in (2, 4)},
+        "runs": runs, "decompress_equals_input": True,
+    }
+    return rec, rank_launches
+
+
+def drive_big_runs(work: str, gb: float) -> dict:
+    """The two experiment drivers at ``gb`` GiB on the card, each its own
+    process; their phase lines, each ``ok`` phase checked (``oracle-decode``
+    may say null: no C sources)."""
+    out = {}
+    for name, argv in (
+        ("multihost_bigrun", [str(gb), "1", "2", work]),
+        ("bigrun_r5", [str(gb), work]),
+    ):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"lz77_tpu_torch.experiments.{name}",
+             *argv], capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"{name} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        phases = [json.loads(ln) for ln in res.stdout.splitlines()
+                  if ln.startswith("{")]
+        bad = [p for p in phases if p.get("ok") is False]
+        if bad or not any(p["phase"].startswith("identity") or
+                          p["phase"] == "done" for p in phases):
+            raise AssertionError(f"{name}: {bad or phases}")
+        out[name] = {"seconds": time.perf_counter() - t0, "phases": phases}
+    return out
+
+
 def profile_summary(profile_dir: str, name: str):
     """Device time by kernel and the device's idle share of one traced
     region, from the numbers ``utils.profiling.trace`` wrote."""
@@ -1730,8 +1893,32 @@ def main() -> int:
         sh_rec["phase_s"] = time.perf_counter() - t0
         emit({"sharded_path": sh_rec})
 
+    # ---- the multi-process encode: local ranks on cuda:0 over Gloo ------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reset_counts()
+        mh_rec, rank_launches = drive_multihost_path(data, ref_stream, tmp)
+        t1 = time.perf_counter()
+        big = drive_big_runs(os.path.join(tmp, "big"), BIG_RUN_GB)
+        # this process's launches (K3: the decode) and the ranks' (K1, K4)
+        mh_launches = {k: w.launches for k, w in WRAPPERS.items()}
+        for k, v in rank_launches.items():
+            mh_launches[k] += v
+        for ph in big["multihost_bigrun"]["phases"]:
+            for r in ph.get("per_host", ()):
+                for k in RANK_KERNELS:
+                    mh_launches[k] += r["launches"][k]
+        idle = [k for k in MULTIHOST_PATH_KERNELS if mh_launches[k] < 1]
+        if idle:
+            raise AssertionError(f"the multi-process path never launched "
+                                 f"{idle}: {mh_launches}")
+        mh_rec.update({"card": card, "phase_s": t1 - t0,
+                       "big_runs_s": time.perf_counter() - t1,
+                       "big_runs": big, "launches": mh_launches})
+        emit({"multihost_path": mh_rec})
+
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
-             probe_launches, sh_launches)
+             probe_launches, sh_launches, mh_launches)
     kernels = []
     for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]

@@ -22,8 +22,10 @@ Layering:
 * ``cli``               — the reference-compatible command line
 * ``corpus`` / ``conformance`` / ``dump`` — the conformance corpus, the
                           per-file conformance runner, the stream inspector
-* ``parallel``          — device meshes and the sharded encode pipelines
-* ``experiments``       — the co-issue probe (four kernels of its own)
+* ``parallel``          — device meshes, the sharded encode pipelines and
+                          the multi-process encode (torch.distributed)
+* ``experiments``       — the co-issue probe (four kernels of its own) and
+                          the big-run drivers
 * ``device`` / ``_build`` — the device rule; kernel build and load
 * ``convert``           — the JAX package's values -> this package's tensors
 

@@ -168,22 +168,36 @@ def build_host_library(src: str, name: str) -> str:
     Uses ``g++``; a machine that has the CUDA toolkit but no ``g++`` on the
     path compiles the same source as host code through ``nvcc -x c++``.
     """
-    tag = _tag([src], ())
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-    if os.path.exists(lib):
-        return lib
+    return _build_host([src], f"lib{name}", ".so", shared=True)
+
+
+def build_host_program(srcs: list[str], name: str) -> str:
+    """Compile host C++ sources into an executable; return its path."""
+    return _build_host(srcs, name, "", shared=False)
+
+
+def _build_host(srcs: list[str], stem: str, suffix: str, *,
+                shared: bool) -> str:
+    """``BUILD_DIR/{stem}_{tag}{suffix}``, named after a hash of the
+    sources, built at most once and moved into place atomically."""
+    tag = _tag(srcs, ())
+    out = os.path.join(BUILD_DIR, f"{stem}_{tag}{suffix}")
+    if os.path.exists(out):
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = os.path.join(BUILD_DIR, f"{name}_{tag}_{os.getpid()}.so")
+    tmp = os.path.join(BUILD_DIR, f"{stem}_{tag}_{os.getpid()}{suffix}")
     gxx = shutil.which("g++")
     if gxx:
-        cmd = [gxx, "-O3", "-pthread", "-shared", "-fPIC", "-o", tmp, src]
+        cmd = [gxx, "-O3", "-pthread",
+               *(("-shared", "-fPIC") if shared else ()), "-o", tmp, *srcs]
     else:
-        cmd = [nvcc(), "-x", "c++", "-O3", "-Xcompiler", "-fPIC,-pthread",
-               "-shared", "-o", tmp, src]
+        cmd = [nvcc(), "-x", "c++", "-O3", "-Xcompiler",
+               "-fPIC,-pthread" if shared else "-pthread",
+               *(("-shared",) if shared else ()), "-o", tmp, *srcs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"host library build failed ({' '.join(cmd)}):\n{res.stderr}"
+            f"host build failed ({' '.join(cmd)}):\n{res.stderr}"
         )
-    os.replace(tmp, lib)
-    return lib
+    os.replace(tmp, out)
+    return out

@@ -162,7 +162,9 @@ def run_conformance(
     return rows
 
 
-def _chunk_equal(a_path: str, b_path: str, n: int) -> bool:
+def chunk_equal(a_path: str, b_path: str, n: int) -> bool:
+    """Whether ``b_path`` holds the first ``n`` bytes of ``a_path`` and
+    nothing else, compared 64 MiB at a time."""
     if os.path.getsize(b_path) != n:
         return False
     a = np.memmap(a_path, dtype=np.uint8, mode="r")
@@ -202,16 +204,7 @@ def run_big_streamed(gigabytes: float, workdir: str,
     dev = device_lib.resolve(device)
     n = int(gigabytes * (1 << 30))
     src = os.path.join(workdir, "big.bin")
-    tiles = list(corpus_lib.get_corpus(scale=4).values())
-    with open(src, "wb") as f:
-        written = 0
-        i = 0
-        while written < n:
-            t = tiles[i % len(tiles)]
-            take = min(len(t), n - written)
-            f.write(t[:take])
-            written += take
-            i += 1
+    corpus_lib.write_big_file(src, n)
     dst = src + ".lz"
     params = spec.Params()
     stats = codec.EncodeStats()
@@ -252,7 +245,7 @@ def run_big_streamed(gigabytes: float, workdir: str,
         self_rss_mb = float(rep["peak_rss_mb"])
     except (IndexError, KeyError, TypeError, ValueError):
         pass
-    ok_self = res.returncode == 0 and _chunk_equal(src, dec_path, n)
+    ok_self = res.returncode == 0 and chunk_equal(src, dec_path, n)
     if os.path.exists(dec_path):
         os.unlink(dec_path)
 
@@ -264,7 +257,7 @@ def run_big_streamed(gigabytes: float, workdir: str,
         t0 = time.perf_counter()
         _ref_run(oracle, "-d", dst, dec_path)
         oracle_dec_s = time.perf_counter() - t0
-        ok_oracle = _chunk_equal(src, dec_path, n)
+        ok_oracle = chunk_equal(src, dec_path, n)
         os.unlink(dec_path)
 
     return {

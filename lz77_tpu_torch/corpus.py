@@ -199,30 +199,54 @@ def _system_files(scale: int) -> dict[str, bytes]:
     return out
 
 
+def iter_corpus(scale: int = 1):
+    """The conformance corpus as ``(label, bytes)`` pairs, each file made
+    only when it is reached (see :func:`get_corpus`)."""
+    real_dir = os.environ.get("LZ77_CORPUS_DIR")
+    if real_dir and os.path.isdir(real_dir):
+        names = [n for n in sorted(os.listdir(real_dir))
+                 if os.path.isfile(os.path.join(real_dir, n))]
+        if names:
+            for name in names:
+                with open(os.path.join(real_dir, name), "rb") as f:
+                    yield f"real:{name}", f.read()
+            return
+    size = (1 << 20) * scale
+    for cls, fn in SYNTH_CLASSES.items():
+        yield f"synthetic:{cls}", fn(size)
+    yield from _system_files(scale).items()
+    # canonical stress classes (always included)
+    rng = np.random.default_rng(99)
+    yield "stress:zeros", b"\x00" * size
+    yield "stress:random", rng.integers(
+        0, 256, size // 4, dtype=np.uint8
+    ).tobytes()
+
+
 def get_corpus(scale: int = 1) -> dict[str, bytes]:
     """The conformance corpus: {label: bytes}.
 
     ``scale`` multiplies the per-file size (scale=1 -> ~1 MB files, good for
     CI; the benchmark runner uses larger scales).
     """
-    corpus: dict[str, bytes] = {}
-    real_dir = os.environ.get("LZ77_CORPUS_DIR")
-    if real_dir and os.path.isdir(real_dir):
-        for name in sorted(os.listdir(real_dir)):
-            p = os.path.join(real_dir, name)
-            if os.path.isfile(p):
-                with open(p, "rb") as f:
-                    corpus[f"real:{name}"] = f.read()
-        if corpus:
-            return corpus
-    size = (1 << 20) * scale
-    for cls, fn in SYNTH_CLASSES.items():
-        corpus[f"synthetic:{cls}"] = fn(size)
-    corpus.update(_system_files(scale))
-    # canonical stress classes (always included)
-    rng = np.random.default_rng(99)
-    corpus["stress:zeros"] = b"\x00" * size
-    corpus["stress:random"] = rng.integers(
-        0, 256, size // 4, dtype=np.uint8
-    ).tobytes()
-    return corpus
+    return dict(iter_corpus(scale))
+
+
+def write_big_file(path: str, n: int, scale: int = 4) -> None:
+    """Write ``n`` bytes of the corpus's files at ``scale``, in order and
+    round again, to ``path``: the big-run drivers' deterministic input.
+    A file is made only when the writer reaches it."""
+    tiles: list[bytes] = []
+    made = iter_corpus(scale)
+    with open(path, "wb") as f:
+        written = i = 0
+        while written < n:
+            if i == len(tiles):
+                nxt = next(made, None)
+                if nxt is not None:
+                    tiles.append(nxt[1])
+            t = tiles[i % len(tiles)]
+            take = min(len(t), n - written)
+            f.write(t[:take])
+            written += take
+            i += 1

@@ -2,9 +2,10 @@
 
 Own copy of the part of the JAX package's binding that this package uses:
 whole-buffer ``encode`` and ``decode``, the host-parse pipeline's helpers
-(``parse_block``, ``pack_tokens``, ``pack_tokens_phase``, ``unpack_tokens``)
-and the bounded-memory file codec (``DecodeStream`` / ``decode_file``,
-``EncodeStream`` / ``encode_file``).  Both packages bind the same C++
+(``parse_block``, ``pack_tokens``, ``pack_tokens_phase``, ``unpack_tokens``),
+the bounded-memory file codec (``DecodeStream`` / ``decode_file``,
+``EncodeStream`` / ``encode_file``) and ``build_cli``, the standalone
+native CLI.  Both packages bind the same C++
 source, which emits streams byte-identical to the device path (same exact
 longest match, smallest offset), so it is the fast independent oracle at
 sizes where the numpy spec model is far too slow, and the
@@ -23,10 +24,10 @@ import numpy as np
 
 from . import _build, spec
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "native", "lz77host.cpp",
-)
+_NATIVE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_SRC = os.path.join(_NATIVE, "lz77host.cpp")
+_CLI_SRC = os.path.join(_NATIVE, "lz77cli.cpp")
 _lock = threading.Lock()
 _lib = None
 
@@ -100,6 +101,15 @@ def load() -> ctypes.CDLL:
         lib.lz77_enc_free.restype = None
         _lib = lib
         return lib
+
+
+def build_cli() -> str:
+    """Build (once) and return the path of the standalone native CLI
+    (``native/lz77cli.cpp`` + ``native/lz77host.cpp``: the reference's
+    flags plus ``-t`` threads and ``-r``, a JSON report on stderr with the
+    process's own peak RSS)."""
+    with _lock:
+        return _build.build_host_program([_CLI_SRC, _SRC], "lz77_native_torch")
 
 
 def encode(

@@ -57,15 +57,21 @@ from .. import device as device_lib
 
 def capped_runs(X: torch.Tensor, Y: torch.Tensor, depth: int,
                 cap: torch.Tensor) -> torch.Tensor:
-    """Run length of X against Y at each of the first ``cap.shape[1]``
-    columns, at most ``cap``; X and Y are (G, B + ext) uint8 with ext >=
-    depth.  By doubling: log2(depth) shifted adds, whatever the depth."""
+    """Run length of X against Y at each of the first ``cap.shape[-1]``
+    columns, at most ``cap``; X and Y are (..., B + ext) uint8 with ext >=
+    depth (broadcast against each other).  By doubling: log2(depth)
+    shifted adds, whatever the depth."""
     rl = (X == Y).to(torch.int16)
     m = 1
     while m < depth:
-        rl = rl + torch.where(rl == m, F.pad(rl[:, m:], (0, m)), 0)
+        rl = rl + torch.where(rl == m, F.pad(rl[..., m:], (0, m)), 0)
         m <<= 1
-    return torch.minimum(rl[:, : cap.shape[1]].to(torch.int32), cap)
+    return torch.minimum(rl[..., : cap.shape[-1]].to(torch.int32), cap)
+
+
+# Elements of one pass of :func:`match_sweep_plain` (distances x bytes):
+# small batches take many distances a pass, the main path's one.
+PLAIN_PASS_ELEMENTS = 1 << 20
 
 
 def match_sweep_plain(
@@ -82,10 +88,13 @@ def match_sweep_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the sweep: same inputs, same (L, O).
 
-    One pass per distance of ``[d_lo, d_hi)`` (see :func:`distance_range`)
-    over the whole (G, B) batch; run lengths by doubling (log2(la) shifted
-    adds), so a deep ``la`` costs no more passes.  Distances no position can
-    reach (``d > max(pos + avail)``) are skipped.
+    Passes over the whole (G, B) batch, each taking as many distances of
+    ``[d_lo, d_hi)`` (see :func:`distance_range`) as keep it near
+    ``PLAIN_PASS_ELEMENTS`` (one for the main path's 8 MiB batch); run
+    lengths by doubling (log2(la) shifted adds), so a deep ``la`` costs no
+    more passes.  Within a pass the longest run wins, then the smallest
+    distance; across passes only a longer run replaces the best.
+    Distances no position can reach (``d > max(pos + avail)``) are skipped.
     """
     G, B = blocks.shape
     H = halos.shape[1]
@@ -103,16 +112,28 @@ def match_sweep_plain(
         [halos, blocks, rights,
          torch.zeros((G, ext), dtype=torch.uint8, device=dev)], dim=1,
     )
-    X = buf[:, H : H + B + ext]
+    # win[:, j] = buf[:, j : j + B + ext]: the source window of distance
+    # H - j, a view
+    win = buf.unfold(1, B + ext, 1)
+    X = win[:, H, None]
     best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
     best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
     dmax = min(d_hi - 1, int(reach.max())) if G * B else 0
-    for d in range(d_lo, dmax + 1):
-        runs = capped_runs(X, buf[:, H - d : H - d + B + ext], depth, cap)
-        runs = torch.where(reach >= d, runs, -1)
-        upd = runs > best_l
-        best_l = torch.where(upd, runs, best_l)
-        best_o = torch.where(upd, d, best_o)
+    per = max(1, PLAIN_PASS_ELEMENTS // max(1, G * (B + ext)))
+    for d0 in range(d_lo, dmax + 1, per):
+        d1 = min(d0 + per, dmax + 1)
+        # distances d1 - 1 down to d0
+        ds = torch.arange(d1 - 1, d0 - 1, -1, dtype=torch.int32,
+                          device=dev)[:, None]
+        runs = capped_runs(X, win[:, H - d1 + 1 : H - d0 + 1], depth,
+                           cap[:, None])
+        runs = torch.where(reach[:, None] >= ds, runs, -1)
+        longest = runs.amax(dim=1)
+        nearest = torch.where(runs == longest[:, None], ds,
+                              dlim + 1).amin(dim=1)
+        upd = longest > best_l
+        best_l = torch.where(upd, longest, best_l)
+        best_o = torch.where(upd, nearest, best_o)
     return best_l, best_o
 
 

@@ -33,8 +33,13 @@ Widths that are not byte multiples take K2's words as they are, fetched
 once a batch and packed on the host by ``native.pack_tokens_phase`` with a
 carried bit phase (the JAX package's ``_encode_bytes_sharded_xla``); its
 padded exact step and ``_compact_tokens`` have no counterpart, since K2
-writes compact words.  ``make_sharded_pipeline_step`` (the JAX package's
-block-aligned entry-0 dry-run step) is not ported.
+writes compact words.
+
+* :func:`make_sharded_pipeline_step` — the JAX package's block-aligned
+  dry-run step: the sharded match, then every block parsed from entry 0
+  with its lengths clamped at the block's end (``ops.parse``), padded
+  ``(off, len, next, counts)`` per block.  Its stream is valid but not the
+  reference parse's (blocks do not chain); no pipeline runs it.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from .. import bitio, spec
 from .. import native as native_lib
 from ..ops import match as match_ops
 from ..models import fused as fused_model
+from ..ops import parse as parse_ops
 from ..ops import parse_walk
 from ..utils import metrics as metrics_lib
 from . import mesh as mesh_lib
@@ -171,6 +177,55 @@ def sharded_match_fn(mesh, params: spec.Params, *, matcher: str = "sweep"):
 
     match_fn.data_shards = n_data
     return match_fn
+
+
+def make_sharded_pipeline_step(mesh, params: spec.Params, *,
+                               matcher: str = "sweep"):
+    """Block-aligned device step: blocks -> (off, len, next, counts).
+
+    Returns ``step(blocks, halos, rights, avails, valid_exts)``: the G rows
+    split over the ``data`` axis in shards of ``G / n_data`` (G must be a
+    multiple of it), each shard's (L, O) from its members (ranged and
+    combined with a ``win`` axis, as :func:`sharded_match_fn`), lengths
+    clamped so that every token ends inside its block (``min(L, B - pos -
+    1)``, as the parse always starts at entry 0), then per block the greedy
+    parse from entry 0 and the token gather (``ops.parse``).  ``off``,
+    ``len`` and ``next`` are (G, B) int32, the first ``counts[g]`` of row g
+    its tokens; ``counts`` is (G,) int32; all on the mesh's first device.
+    The stream they make is valid but not the reference parse's: only the
+    entry-carried pipelines keep the size <= reference guarantee.
+    """
+    n_data = mesh.shape[mesh_lib.DATA_AXIS]
+    matcher = _matcher_for(matcher, mesh.shape[mesh_lib.WIN_AXIS])
+    la, dlim = params.la, params.d_limit
+    dev0 = mesh.devices[0, 0]
+
+    def step(blocks, halos, rights, avails, valid_exts):
+        G, B = blocks.shape
+        check_batch_blocks(G, n_data)
+        shards = _match_shards(mesh, params, matcher,
+                               (blocks, halos, rights, avails, valid_exts),
+                               G // n_data)
+        outs = []
+        for d, (_, inputs, parts) in enumerate(shards):
+            dev = mesh.devices[d, 0]
+            L, O = _combine(parts, dev, dlim)
+            pos = torch.arange(B, dtype=torch.int32, device=dev)
+            L = torch.clamp(torch.minimum(L, B - pos - 1), min=0)
+            blk, rgt, vext = inputs[0], inputs[2], inputs[4]
+            for i in range(L.shape[0]):
+                vl = torch.clamp(vext[i], max=B)
+                starts, count, _ = parse_ops.greedy_parse(L[i], vl, 0, la=la)
+                off, ln, nxt = parse_ops.gather_tokens(
+                    starts, vl, L[i], O[i], torch.cat([blk[i], rgt[i]]),
+                    la=la)
+                outs.append([t.to(dev0) for t in (off, ln, nxt,
+                                                   count.reshape(1))])
+        off, ln, nxt, counts = (torch.stack([o[k] for o in outs])
+                                for k in range(4))
+        return off, ln, nxt, counts.reshape(G)
+
+    return step
 
 
 def make_sharded_walk_step(mesh, params: spec.Params, *,

@@ -1,12 +1,14 @@
 """Run metrics (the reference codec has none — SURVEY.md §5).
 
-Per-phase wall-clock timings of one encode.  Own copy of the part of the JAX
-package's ``utils.metrics`` that the encode pipelines use.
+Per-phase wall-clock timings of one encode, a structured run report and
+scaling efficiency, JSON-serializable.  Own copy of the JAX package's
+``utils.metrics``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 
@@ -38,6 +40,43 @@ class PhaseTimes:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class RunReport:
+    mode: str = ""
+    input_bytes: int = 0
+    output_bytes: int = 0
+    tokens: int = 0
+    blocks: int = 0
+    seconds: float = 0.0
+    phases: PhaseTimes = dataclasses.field(default_factory=PhaseTimes)
+    device: str = ""
+    backend: str = ""
+
+    @property
+    def ratio(self) -> float:
+        return self.output_bytes / self.input_bytes if self.input_bytes else 0.0
+
+    @property
+    def mb_per_s(self) -> float:
+        return self.input_bytes / self.seconds / 1e6 if self.seconds else 0.0
+
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["phases"] = self.phases.as_dict()
+        d["ratio"] = round(self.ratio, 6)
+        d["mb_per_s"] = round(self.mb_per_s, 3)
+        return json.dumps(d)
+
+
+def scaling_efficiency(
+    throughput_n: float, throughput_1: float, n: int
+) -> float:
+    """Fraction of ideal linear scaling achieved going 1 -> n workers."""
+    if throughput_1 <= 0 or n <= 0:
+        return 0.0
+    return throughput_n / (throughput_1 * n)
 
 
 class StopwatchPhase:

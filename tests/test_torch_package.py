@@ -1,6 +1,7 @@
 """Package rules of the port: what it imports, where it runs, what it
 carries across from the JAX package."""
 
+import json
 import os
 import pkgutil
 import shutil
@@ -13,13 +14,13 @@ import torch
 
 import lz77_tpu
 import lz77_tpu_torch
-from lz77_tpu_torch import _build, conformance, convert, device
+from lz77_tpu_torch import _build, conformance, convert, device, native
 from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
                                 parse_walk)
+from lz77_tpu_torch.parallel import distributed, sharded
 from lz77_tpu_torch.parallel import mesh as mesh_lib
-from lz77_tpu_torch.parallel import sharded
 
 torch.set_num_threads(1)
 
@@ -48,7 +49,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "lz77_tpu_torch.dump", "lz77_tpu_torch.conformance",
             "lz77_tpu_torch.experiments.coissue",
             "lz77_tpu_torch.parallel.mesh",
-            "lz77_tpu_torch.parallel.sharded"} <= set(names)
+            "lz77_tpu_torch.parallel.sharded",
+            "lz77_tpu_torch.parallel.distributed",
+            "lz77_tpu_torch.experiments.multihost_bigrun",
+            "lz77_tpu_torch.experiments.bigrun_r5"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -122,6 +126,13 @@ def test_default_device_raises_without_a_card():
                 mesh_lib.make_mesh(4, 2, devices=["cuda"] * 8),
                 lz77_tpu_torch.Params())),
         lambda: codec.encode_file(__file__, os.devnull, pipeline="sharded"),
+        lambda: distributed.encode_bytes_multihost(b"abc"),
+        lambda: distributed.encode_bytes_multihost(b"abc", force=True),
+        lambda: distributed.encode_file_multihost(__file__, os.devnull),
+        lambda: distributed.encode_bytes_multihost(b"abc", device="cuda"),
+        lambda: sharded.make_sharded_pipeline_step(
+            mesh_lib.make_mesh(4, 2, devices=["cuda"] * 8),
+            lz77_tpu_torch.Params()),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
@@ -130,7 +141,9 @@ def test_default_device_raises_without_a_card():
          "encode_bytes_fused_scan", "encode_batch_device", "coissue_call_v",
          "coissue_probe", "run_conformance", "run_big_streamed",
          "make_mesh", "encode_bytes_sharded", "encode_bytes_sharded_cuda",
-         "sharded_match_fn", "encode_file_sharded"],
+         "sharded_match_fn", "encode_file_sharded", "encode_bytes_multihost",
+         "encode_bytes_multihost_forced", "encode_file_multihost",
+         "encode_bytes_multihost_cuda", "make_sharded_pipeline_step"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
@@ -164,6 +177,15 @@ def test_file_entry_points_raise_without_a_card(tmp_path):
         lz77_tpu_torch.decompress_file(str(sp), str(tmp_path / "o"))
     with pytest.raises(RuntimeError, match="CUDA"):
         codec.decode_file_device(str(sp), str(tmp_path / "o"))
+    # the multi-process file encode raises before it writes anything, and
+    # so does each rank of its command line
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.encode_file_multihost(str(ip), str(tmp_path / "mh.lz"))
+    assert not (tmp_path / "mh.lz").exists()
+    with pytest.raises(RuntimeError, match="rank 0 of 1 exited 1"):
+        distributed.launch(["-i", str(ip), "-o", str(tmp_path / "mh.lz")], 1,
+                           timeout=120)
+    assert not list(tmp_path.glob("mh.lz*"))
     # the host backends need no card
     assert lz77_tpu_torch.decompress_file(
         str(sp), str(tmp_path / "o"), backend="native") == ip.stat().st_size
@@ -292,3 +314,49 @@ def test_convert_tables_lox_and_tokens_round_trip(rng):
     np.testing.assert_array_equal(u & 0xFFFF, off)
     np.testing.assert_array_equal((u >> 16) & 0xFF, ln)
     np.testing.assert_array_equal(u >> 24, nxt)
+
+
+def test_run_report_and_scaling_efficiency_match_jax():
+    """The port's copy of ``utils.metrics`` gives the JAX package's values
+    (``tests/test_utils.py``'s case and the edges)."""
+    from lz77_tpu.utils import metrics as jax_metrics
+    from lz77_tpu_torch.utils import metrics
+
+    for kw in (dict(mode="encode", input_bytes=1000, output_bytes=500,
+                    seconds=0.5),
+               dict(mode="decode", input_bytes=0, tokens=7, blocks=2,
+                    seconds=0.0, device="cuda", backend="device")):
+        got = json.loads(metrics.RunReport(**kw).to_json())
+        assert got == json.loads(jax_metrics.RunReport(**kw).to_json())
+    assert json.loads(metrics.RunReport(
+        mode="encode", input_bytes=1000, output_bytes=500,
+        seconds=0.5).to_json())["mb_per_s"] == 0.002
+    for args in ((7.2, 1.0, 8), (3.0, 2.0, 2), (1.0, 0.0, 4), (1.0, 1.0, 0),
+                 (0.0, 1.0, 3), (5.0, -1.0, 2)):
+        assert (metrics.scaling_efficiency(*args)
+                == jax_metrics.scaling_efficiency(*args))
+    assert metrics.scaling_efficiency(7.2, 1.0, 8) == pytest.approx(0.9)
+
+
+def test_native_cli_builds_once_and_round_trips(tmp_path, rng):
+    """``native.build_cli`` builds the standalone CLI into the port's build
+    directory once; its encode is ``native.encode``'s stream and its decode
+    gives the input back."""
+    cli_bin = native.build_cli()
+    assert cli_bin == native.build_cli()
+    assert os.path.dirname(cli_bin) == _build.BUILD_DIR
+    data = bytes(rng.integers(0, 4, 20000, dtype=np.uint8)) + b"tail" * 500
+    src, enc, dec = tmp_path / "in", tmp_path / "in.lz", tmp_path / "out"
+    src.write_bytes(data)
+    for la, sb in ((15, 4095), (8, 500)):
+        res = subprocess.run(
+            [cli_bin, "-c", "-i", str(src), "-o", str(enc), "-l", str(la),
+             "-s", str(sb), "-r"], capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr
+        assert json.loads(res.stderr.strip().splitlines()[-1])["mode"] == \
+            "encode"
+        assert enc.read_bytes() == native.encode(data, lz77_tpu_torch.Params(
+            la, sb))
+        subprocess.run([cli_bin, "-d", "-i", str(enc), "-o", str(dec)],
+                       check=True)
+        assert dec.read_bytes() == data

@@ -18,7 +18,7 @@ from lz77_tpu.models import codec as jax_codec
 from lz77_tpu.ops import match as jax_match
 from lz77_tpu.parallel import mesh as jax_mesh
 from lz77_tpu.parallel import sharded as jax_sharded
-from lz77_tpu_torch import cli, native, spec
+from lz77_tpu_torch import bitio, cli, native, spec
 from lz77_tpu_torch.models import codec
 from lz77_tpu_torch.ops import match
 from lz77_tpu_torch.parallel import mesh as mesh_lib
@@ -474,17 +474,62 @@ def test_chunk_matcher_runs_only_without_a_win_axis(payload):
 
 
 def test_the_pipeline_step_is_not_ported_and_encode_bytes_has_no_sharded():
-    """``make_sharded_pipeline_step`` (the JAX package's block-aligned
-    entry-0 dry-run step) is queued; ``codec.encode_bytes`` keeps its two
-    pipelines: ``encode_bytes_sharded`` is the bytes entry point."""
+    """The name dates from before ``make_sharded_pipeline_step`` (the JAX
+    package's block-aligned entry-0 dry-run step) was ported; it pins the
+    step now: it makes a step as the JAX one does, whose batch must split
+    over the data axis (the JAX text), and which no pipeline runs.
+    ``codec.encode_bytes`` keeps its two pipelines: ``encode_bytes_sharded``
+    is the bytes entry point."""
     assert hasattr(jax_sharded, "make_sharded_pipeline_step")
-    assert not hasattr(sharded, "make_sharded_pipeline_step")
+    step = sharded.make_sharded_pipeline_step(cpu_mesh(4, 2), spec.Params())
+    assert callable(step)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="multiple of data-axis size 4"):
+        step(z((6, 8), dtype=torch.uint8), z((6, 4095), dtype=torch.uint8),
+             z((6, 14), dtype=torch.uint8), z(6, dtype=torch.int32),
+             torch.full((6,), 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="sweep"):
+        sharded.make_sharded_pipeline_step(cpu_mesh(4, 2), spec.Params(),
+                                           matcher="chunk")
     with pytest.raises(ValueError, match="unknown pipeline"):
         codec.encode_bytes(b"abc", pipeline="sharded", device="cpu")
     with pytest.raises(TypeError, match="match_fn"):
         codec.encode_bytes(b"abc", pipeline="fused", device="cpu",
                            match_fn=sharded.sharded_match_fn(
                                cpu_mesh(1, 1), spec.Params()))
+
+
+@pytest.mark.parametrize("n_data,n_win", [(8, 1), (4, 2)])
+def test_pipeline_step_matches_jax(n_data, n_win, rng):
+    """The block-aligned step's (off, len, next, counts) against the JAX
+    package's step on the same batch (``tests/test_parallel.py``'s), with
+    tolerance 0; the stream its tokens make decodes to the input."""
+    data = make_text(rng, 8 * 512)
+    p = spec.Params(15, 255)
+    B, G = 512, 8
+    x = np.frombuffer(data, np.uint8)
+    H, R = p.d_limit, p.len_limit
+    halos = np.zeros((G, H), np.uint8)
+    rights = np.zeros((G, R), np.uint8)
+    for b in range(1, G):
+        halos[b] = x[b * B - H : b * B]
+        rights[b - 1] = x[b * B : b * B + R]
+    arrs = (x.reshape(G, B).copy(), halos, rights,
+            np.array([0] + [H] * (G - 1), np.int32),
+            np.array([B + R] * (G - 1) + [B], np.int32))
+    want = jax_sharded.make_sharded_pipeline_step(
+        jax_mesh.make_mesh(n_data, n_win), jax_spec.Params(15, 255)
+    )(*(jnp.asarray(a) for a in arrs))
+    got = sharded.make_sharded_pipeline_step(cpu_mesh(n_data, n_win), p)(
+        *(torch.from_numpy(a) for a in arrs))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    off, ln, nxt, counts = (t.numpy() for t in got)
+    stream = bitio.concat_token_bits(
+        [bitio.tokens_to_bits(off[i, : counts[i]], ln[i, : counts[i]],
+                              nxt[i, : counts[i]], p) for i in range(G)], p)
+    assert native.decode(stream) == data
 
 
 def test_walk_step_passes_the_entry_through_shards_without_bytes(payload):
