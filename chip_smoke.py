@@ -72,15 +72,21 @@ K1's record carries each member's time at the main shape (``ranged_ms``).
 The plain tensor modules (the scan parser, the chunked decoder) run on the
 card on the first 8 MiB and are held against the same references.
 
-The probe's kernels are held against their plain versions from a random
-slab (V at nv 1, 2 and 7, all 8 slabs), across the scalar table's wrap (S
-at ns 8, 4096 and 10,000), F at nv 7 with k 8 and 24, and Q at nv 7, ns 56;
-each is timed beside its plain version and its bound (V: integer issue at
-one SM, two instructions an element; S: the latency of its chain, one
-shared-memory load-to-use a step; F: the larger, Q: the sum).  ``bound_by``
-takes the words "bytes" and "operations" only, so each X entry of the
-``kernels`` line also says in ``bound_note`` what its bound counts; V's
-timing record adds ``smem_ms``, the limit its shared-memory accesses set.
+The probe's kernels are held against their plain versions: V, F (k 8)
+and Q from a random slab and from one-hot slabs (a word at the corners and
+at the ends of a thread's four lanes, in each slab) after 1, 2, 7 and 33
+bodies, S across the scalar table's wrap (ns 8, 4096 and 10,000), F at k
+24; each timed output (V at nv 1,000, S at ns 10,000, F and Q at nv 100
+with 88 scalar steps an iteration, and again with the probe's k) is held
+too, then timed beside its plain version and its bound (V: issue at one
+SM, two instructions an element; S: the latency of its chain, one
+shared-memory load-to-use a step; F: the larger, Q: the sum).
+``bound_by`` takes the words "bytes" and "operations" only, so each X
+entry of the ``kernels`` line also says in ``bound_note`` what its bound
+counts. The ``probe_kernels`` records of V, F and Q carry ptxas' report
+(registers, spill bytes, stack, static shared memory) and their SASS
+opcode counts (``cuobjdump -sass``); V's adds ``shfl_ms``, the limit its
+shuffles would set.
 
 The walk decode is also held against its plain version's tiled
 decomposition on the small cases, and run as the streamed decode runs it:
@@ -149,15 +155,20 @@ HBM_BYTES_PER_S = 3.35e12
 # SM; half of those lanes issue INT32, so 67e12 / 2 / 2 compares a second.
 INT_OPS_PER_S = 67e12 / 4
 # The co-issue probe's kernels run as one thread block on one of the 132 SMs,
-# at the H100 SXM's 1.98 GHz boost clock.
-SMS = 132
+# at the H100 SXM's 1.98 GHz boost clock.  An SM's four warp schedulers
+# each issue one 32-lane instruction a clock.
 CLOCK_HZ = 1.98e9
+SM_ISSUE_LANES_PER_S = 4 * 32 * CLOCK_HZ
 # Its scalar chain is bound by latency: each step's load address is the
 # previous load's value.  Assumed: one shared-memory load-to-use of 30
 # cycles a step.
 SMEM_LOAD_TO_USE_S = 30 / CLOCK_HZ
-# One SM's shared memory serves 32 four-byte words a clock.
-SMEM_WORDS_PER_S = 32 * CLOCK_HZ
+# One SM's shuffle unit serves one warp-wide __shfl_sync (32 lanes) a clock.
+SHFL_LANES_PER_S = 32 * CLOCK_HZ
+# F and Q are timed at nv 100 with a fixed 88 scalar steps an iteration
+# (Q: ns 8,800), so that their times compare from run to run whatever k
+# the probe picks; and at the probe's own k beside it.
+PROBE_TIMED_K = 88
 
 WRAPPERS = {
     "match_kernel": match.match_sweep,
@@ -733,99 +744,218 @@ def check_sweepwalk(name, x, g0, G, B, p, entry=0, cut=0, reps=0):
 # ------------------------------------------------------- X-V .. X-Q -----
 
 def probe_bounds(nv: int, steps: int) -> tuple[float, float]:
-    """ms: ``nv`` vector bodies at one SM's share of the integer rate (two
-    instructions a slab element: ``(x ^ a) | (x & b)`` is one three-input
-    LOP3, ``+ 1`` one IADD), and ``steps`` scalar steps at one
-    shared-memory load-to-use each (a latency, not a rate)."""
+    """ms: ``nv`` vector bodies at one SM's issue rate (two instructions a
+    slab element: ``(x ^ a) | (x & b)`` is one three-input LOP3, ``+ 1``
+    one add; the add need not take the INT32 lanes, and the LOP3s alone
+    fill the SM's 64 INT32 lanes a clock as long), and ``steps`` scalar
+    steps at one shared-memory load-to-use each (a latency, not a
+    rate)."""
     ops = nv * coissue.SLAB * coissue.RR * coissue.LANES * 2
-    return ops / (INT_OPS_PER_S / SMS) * 1e3, steps * SMEM_LOAD_TO_USE_S * 1e3
+    return ops / SM_ISSUE_LANES_PER_S * 1e3, steps * SMEM_LOAD_TO_USE_S * 1e3
 
 
-def probe_smem_ms(nv: int) -> float:
-    """ms: the shared-memory accesses of ``coissue_v_kernel``'s design, three
-    loads and a store a slab element a body, at one SM's rate.  Not a bound
-    of the function (a slab held in registers needs none of them): the
-    limit of this design, beside its time."""
-    return nv * coissue.SLAB * coissue.RR * coissue.LANES * 4 \
-        / SMEM_WORDS_PER_S * 1e3
+def probe_shfl_ms(nv: int) -> float:
+    """ms: the shuffles of ``coissue_v_kernel``'s design, one a row a
+    thread a body (32 a thread, 256 threads), at one SM's shuffle rate.
+    Not a bound of the function: the limit of this design's one addition
+    to it, beside its time."""
+    return nv * coissue.SLAB * 32 * coissue.RR / SHFL_LANES_PER_S * 1e3
+
+
+def probe_err(kernel: str, got, plain_result) -> int:
+    """Max abs error of a probe wrapper's result against its plain
+    version's, taken in the order the wrapper returns them."""
+    if kernel == "coissue_s_kernel":
+        got, want = (got,), (plain_result,)
+    elif kernel == "coissue_v_kernel":
+        want = plain_result[:1], plain_result
+    else:
+        slab, tp = plain_result
+        want = slab[:1], tp, slab
+    return max(max_err(a, b) for a, b in zip(got, want))
 
 
 def check_probe(seed: torch.Tensor, init: torch.Tensor) -> list:
     """The probe's kernels against their plain versions on the card,
-    tolerance 0: V from a random slab (all 8 slabs), S across the table's
-    wrap twice (stores land where the chain loads after 2,048 steps), F at
-    two k, Q; and the default slab, zeros, gives nv everywhere."""
+    tolerance 0: V, F and Q from a random slab (all 8 slabs) and from
+    ``coissue.ONE_HOT``'s slabs (one word in each slab, at the corners and
+    at the ends of a thread's four lanes) after 1, 2, 7 and 33 bodies,
+    which show a wrong roll, a wrong in-place order or a wrong shuffle (33
+    wraps the rows); S across the table's wrap twice (stores land where
+    the chain loads after 2,048 steps), F also at k 24; and the default
+    slab, zeros, gives nv everywhere."""
     checks = []
 
-    def held(kernel, case, got, want, **info):
-        err = max(max_err(a, b) for a, b in zip(got, want))
+    def held(kernel, case, got, plain_result, **info):
+        err = probe_err(kernel, got, plain_result)
         rec = {"kernel": kernel, "case": case, **info, "max_abs_err": err}
         if err != 0:
             raise AssertionError(f"{kernel} disagrees: {rec}")
         checks.append(rec)
 
-    for nv in (1, 2, 7):
-        want = coissue.kernel_v(init, nv)
-        held("coissue_v_kernel", f"nv{nv}_random_slab",
-             coissue.call_v(nv, init=init), (want[:1], want), nv=nv)
+    slabs = [("random_slab", init)] + [
+        (f"one_hot_r{r}_l{l}", coissue.one_hot_slab(r, l).to(init.device))
+        for r, l in coissue.ONE_HOT]
+    for name, x in slabs:
+        for nv in (1, 2, 7, 33):
+            held("coissue_v_kernel", f"nv{nv}_{name}",
+                 coissue.call_v(nv, init=x), coissue.kernel_v(x, nv), nv=nv)
+            held("coissue_f_kernel", f"nv{nv}_k8_{name}",
+                 coissue.call_f(seed, nv, 8, x),
+                 coissue.kernel_f(seed, x, nv, 8), nv=nv, k=8)
+            held("coissue_q_kernel", f"nv{nv}_ns{8 * nv}_{name}",
+                 coissue.call_q(seed, nv, 8 * nv, 8, x),
+                 coissue.kernel_q(seed, x, nv, 8 * nv, 8), nv=nv, ns=8 * nv,
+                 unroll=8)
     for ns in (8, 4096, 10000):
-        held("coissue_s_kernel", f"ns{ns}", (coissue.call_s(seed, ns, 8),),
-             (coissue.kernel_s(seed, ns, 8),), ns=ns, unroll=8)
-    for k in (8, 24):
-        slab, tp = coissue.kernel_f(seed, init, 7, k)
-        held("coissue_f_kernel", f"nv7_k{k}", coissue.call_f(seed, 7, k, init),
-             (slab[:1], tp, slab), nv=7, k=k)
-    slab, tp = coissue.kernel_q(seed, init, 7, 56, 8)
-    held("coissue_q_kernel", "nv7_ns56", coissue.call_q(seed, 7, 56, 8, init),
-         (slab[:1], tp, slab), nv=7, ns=56, unroll=8)
+        held("coissue_s_kernel", f"ns{ns}", coissue.call_s(seed, ns, 8),
+             coissue.kernel_s(seed, ns, 8), ns=ns, unroll=8)
+    held("coissue_f_kernel", "nv7_k24", coissue.call_f(seed, 7, 24, init),
+         coissue.kernel_f(seed, init, 7, 24), nv=7, k=24)
     _, slab = coissue.call_v(5, device=init.device)
     if not bool((slab == 5).all()):
         raise AssertionError("coissue_v_kernel: the default slab is not zeros")
     return checks
 
 
+def sass_opcodes() -> dict:
+    """{kernel: {opcode: count}} over the kernel library's SASS
+    (``cuobjdump -sass``), opcodes without their modifiers; {} where the
+    toolkit has no ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", _build.build_kernels()],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(line.split("Function :")[1].strip(), {})
+            continue
+        parts = line.split("*/", 1)
+        if cur is None or not parts[0].strip().startswith("/*") \
+                or len(parts) < 2 or not parts[1].strip():
+            continue
+        words = parts[1].split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        op = op.rstrip(";").split(".")[0]
+        cur[op] = cur.get(op, 0) + 1
+    return out
+
+
+def probe_resources() -> dict:
+    """ptxas' report for the slab kernels (registers, static shared
+    memory, and spill bytes, stores + loads, and stack of the kernel and
+    of the ``vec_loop`` it calls, together) and their SASS opcodes."""
+    report = _build.ptxas_resources("coissue.cu")
+    sass = sass_opcodes()
+
+    def entry(name):
+        (r,) = [v for k, v in report.items() if f"{len(name)}{name}" in k]
+        return r
+
+    loop = entry("vec_loop")
+    out = {}
+    for name in ("coissue_v_kernel", "coissue_f_kernel", "coissue_q_kernel"):
+        r = entry(name)
+        out[name] = {
+            "registers": r["registers"], "smem_bytes": r["smem_bytes"],
+            "spill_bytes": sum(x[k] for x in (r, loop) for k in (
+                "spill_store_bytes", "spill_load_bytes")),
+            "stack_bytes": r["stack_bytes"] + loop["stack_bytes"],
+            "sass_opcodes": next((v for k, v in sass.items()
+                                  if f"{len(name)}{name}" in k), None)}
+    return out
+
+
 def time_probe(seed: torch.Tensor, init: torch.Tensor, k: int,
                checks: list) -> list:
-    """Each probe kernel timed (median of 3 after a warm-up) beside its
+    """Each probe kernel's timed output held against its plain version
+    (tolerance 0), then timed (median of 3 after a warm-up) beside its
     plain version and its bound, at loop counts the plain versions (a
     tensor op an element op of the chain) finish in about a second: V at
-    nv 1000, S at ns 10,000, F and Q at nv 100 with the probe's k."""
+    nv 1000, S at ns 10,000, F and Q at nv 100 with ``PROBE_TIMED_K`` and
+    again with the probe's k.  V, F and Q carry ptxas' report."""
     slab_b, seed_b = init.numel() * 4, seed.numel() * 4
     v_ops, _ = probe_bounds(1000, 0)
     _, s_lat = probe_bounds(0, 10000)
-    fv_ops, fs_lat = probe_bounds(100, 100 * k)
-    # (kernel, case, kernel call, plain call, bytes, operations bound in ms,
-    #  what that bound counts)
+
+    def f_case(kk):
+        fv_ops, fs_lat = probe_bounds(100, 100 * kk)
+        return (lambda: coissue.call_f(seed, 100, kk, init),
+                lambda: coissue.kernel_f(seed, init, 100, kk),
+                max(fv_ops, fs_lat))
+
+    def q_case(kk):
+        fv_ops, fs_lat = probe_bounds(100, 100 * kk)
+        return (lambda: coissue.call_q(seed, 100, 100 * kk, 8, init),
+                lambda: coissue.kernel_q(seed, init, 100, 100 * kk, 8),
+                fv_ops + fs_lat)
+
+    kt = PROBE_TIMED_K
+    # (kernel, case, kernel call, plain call, ops bound in ms, bytes, what
+    #  that bound counts, the same at the probe's k or None)
     cases = (
         ("coissue_v_kernel", "nv1000", lambda: coissue.call_v(1000, init=init),
-         lambda: coissue.kernel_v(init, 1000), 2 * slab_b, v_ops,
-         "issue: a LOP3 and an IADD a slab element a body"),
+         lambda: coissue.kernel_v(init, 1000), v_ops, 2 * slab_b,
+         "issue: a LOP3 and an add a slab element a body, 128 lanes a clock",
+         None),
         ("coissue_s_kernel", "ns10000", lambda: coissue.call_s(seed, 10000, 8),
-         lambda: coissue.kernel_s(seed, 10000, 8), seed_b + 4, s_lat,
-         "latency: one shared-memory load-to-use a dependent step"),
-        ("coissue_f_kernel", f"nv100_k{k}",
-         lambda: coissue.call_f(seed, 100, k, init),
-         lambda: coissue.kernel_f(seed, init, 100, k),
-         2 * slab_b + seed_b + 4, max(fv_ops, fs_lat),
-         "the larger of V's issue and S's latency"),
-        ("coissue_q_kernel", f"nv100_ns{100 * k}",
-         lambda: coissue.call_q(seed, 100, 100 * k, 8, init),
-         lambda: coissue.kernel_q(seed, init, 100, 100 * k, 8),
-         2 * slab_b + seed_b + 4, fv_ops + fs_lat,
-         "V's issue plus S's latency"),
+         lambda: coissue.kernel_s(seed, 10000, 8), s_lat, seed_b + 4,
+         "latency: one shared-memory load-to-use a dependent step", None),
+        ("coissue_f_kernel", f"nv100_k{kt}", *f_case(kt),
+         2 * slab_b + seed_b + 4, "the larger of V's issue and S's latency",
+         f_case(k)),
+        ("coissue_q_kernel", f"nv100_ns{100 * kt}", *q_case(kt),
+         2 * slab_b + seed_b + 4, "V's issue plus S's latency", q_case(k)),
     )
+
+    res = probe_resources()
     recs = []
-    for kernel, case, fn, plain, nbytes, ops_ms, note in cases:
-        recs.append({
-            "kernel": kernel, "case": case,
-            "max_abs_err": max(c["max_abs_err"] for c in checks
-                               if c["kernel"] == kernel),
+    for kernel, case, fn, plain, ops_ms, nbytes, note, at_k in cases:
+        err = probe_err(kernel, fn(), plain())
+        if err != 0:
+            raise AssertionError(f"{kernel} disagrees on {case}: {err}")
+        rec = {
+            "kernel": kernel, "case": case, "timed_output_max_abs_err": err,
+            "max_abs_err": max([err] + [c["max_abs_err"] for c in checks
+                                        if c["kernel"] == kernel]),
             "ms": time_ms(fn, 3), "plain_ms": time_ms(plain, 1),
             "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": ops_ms, "bound_note": note,
-        })
-    recs[0]["smem_ms"] = probe_smem_ms(1000)
+            "ops_ms": ops_ms, "bound_note": note, **res.get(kernel, {}),
+        }
+        if at_k is not None:
+            fk, plain_k, ops_k = at_k
+            err_k = probe_err(kernel, fk(), plain_k())
+            if err_k != 0:
+                raise AssertionError(f"{kernel} disagrees at k {k}: {err_k}")
+            rec["at_probe_k"] = {"k": k, "ms": time_ms(fk, 3),
+                                 "ops_ms": ops_k, "max_abs_err": err_k}
+        recs.append(rec)
+    recs[0]["shfl_ms"] = probe_shfl_ms(1000)
     return recs
+
+
+def probe_by_k(ks=(0, 8, 16, 32, 88), n=(20_000, 40_000)) -> dict:
+    """us an iteration of F and Q at several k (F's scalar steps an
+    iteration, Q's ns / nv), each a slope over ``n`` iterations as the
+    probe takes it, and the least-squares line through F's for k > 0: a
+    per-step slope near ``scal_step_ns`` says the chain keeps its own
+    speed once the slab warps are done, and the intercept is the part of
+    a slab body the chain did not hide."""
+    dev = torch.device("cuda")
+    seed = torch.from_numpy(coissue.make_seed(np.random.default_rng(0))) \
+        .to(dev)
+    tc = lambda fn: coissue.time_call(fn, dev)  # noqa: E731
+    f = {k: coissue.slope(lambda m: tc(lambda: coissue.call_f(seed, m, k)),
+                          *n) * 1e6 for k in ks}
+    q = {k: coissue.slope(lambda m: tc(lambda: coissue.call_q(
+        seed, m, m * k, coissue.UNROLL)), *n) * 1e6 for k in ks}
+    x = np.array([k for k in ks if k], float)
+    slope_us, icept_us = np.polyfit(x, [f[k] for k in ks if k], 1)
+    return {"fused_iter_us_by_k": f, "seq_nests_iter_us_by_k": q,
+            "fused_step_ns_fit": slope_us * 1e3,
+            "fused_intercept_us_fit": icept_us}
 
 
 def drive_probe_path() -> tuple[dict, dict]:
@@ -846,7 +976,7 @@ def drive_probe_path() -> tuple[dict, dict]:
         **r, "sizes": {"nv": [coissue.NV1, coissue.NV2],
                        "ns": [coissue.NS1, coissue.NS2],
                        "unroll": coissue.UNROLL},
-        "seconds": seconds, "launches": launches,
+        "seconds": seconds, "launches": launches, **probe_by_k(),
         "verdict": ("t_F nearer max(t_V, t_S): the chains overlap"
                     if nearer_max else
                     "t_F nearer t_V + t_S: the chains do not overlap"),

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -154,6 +155,47 @@ def kernels() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _kernels = lib
         return _kernels
+
+
+def parse_ptxas(text: str) -> dict:
+    """Each function of an ``nvcc -Xptxas -v`` report -> {mangled name:
+    {"stack_bytes", "spill_store_bytes", "spill_load_bytes"}}, entry
+    functions also with "registers" and "smem_bytes" (static shared memory
+    only: ptxas does not see the dynamic size of a launch).  A function
+    that is not inlined has its own stack and spills."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            props.update(stack_bytes=int(m.group(1)),
+                         spill_store_bytes=int(m.group(2)),
+                         spill_load_bytes=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(m.group(1)),
+                         smem_bytes=int(smem.group(1)) if smem else 0)
+            entry = None
+    return out
+
+
+def ptxas_resources(source: str) -> dict:
+    """:func:`parse_ptxas` of the report ``build_kernels`` kept for one
+    source of ``KERNEL_SOURCES`` (its log in ``BUILD_DIR``)."""
+    log = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}.log")
+    with open(log) as f:
+        return parse_ptxas(f.read())
 
 
 def check(err: int, what: str) -> None:

@@ -10,7 +10,8 @@ same SM?  It is measured with the experiment's calibrated proxies, each one
 thread block on one SM (``csrc/coissue.cu``):
 
   V  vector-only: ``nv`` loop-carried :func:`vec_body` steps on an
-     (8, 32, 128) int32 slab in shared memory (rolls + logical ops).
+     (8, 32, 128) int32 slab held in registers, a warp a slab (rolls +
+     logical ops; :func:`vec_body_registers` follows the kernel's order).
   S  scalar-only: ``ns`` walk-like dependent steps on a (4096,) int32
      table seeded with a (2048,) one (load -> derive -> store -> advance).
   F  fused: ``nv`` iterations of one V body + ``k`` S steps, the two
@@ -75,6 +76,53 @@ def vec_body(x: torch.Tensor) -> torch.Tensor:
     """One sweep-window-like step: ``(x ^ roll(x, 1, 2)) | (x & roll(x, 1,
     1)) + 1`` over the whole slab, int32 wrapping."""
     return ((x ^ torch.roll(x, 1, 2)) | (x & torch.roll(x, 1, 1))) + 1
+
+
+def to_registers(slab: torch.Tensor) -> torch.Tensor:
+    """(SLAB, RR, LANES) -> (SLAB, 32, RR, 4): warp w's thread t holds
+    lanes 4t..4t+3 of every row of slab w, as in ``coissue_v_kernel``."""
+    return slab.reshape(SLAB, RR, 32, LANES // 32).permute(0, 2, 1, 3) \
+        .contiguous()
+
+
+def from_registers(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_registers`."""
+    return x.permute(0, 2, 1, 3).reshape(SLAB, RR, LANES)
+
+
+def vec_body_registers(x: torch.Tensor) -> torch.Tensor:
+    """:func:`vec_body` in ``coissue_v_kernel``'s order, for the tests, on
+    the per-thread arrays of :func:`to_registers`: rows updated in place
+    from 31 down to 0 (the row above still old; row 0 takes the old row 31,
+    saved first), each row's lanes from 3 down to 0 (the left neighbour
+    still old), lane 0 taking thread t - 1's old lane 3 (the shuffle, a
+    roll over the thread axis)."""
+    x = x.clone()
+    last = x[:, :, RR - 1].clone()
+    for r in range(RR - 1, -1, -1):
+        w = torch.roll(x[:, :, r, -1], 1, 1)
+        up = x[:, :, r - 1] if r else last
+        for j in range(x.shape[3] - 1, -1, -1):
+            a = x[:, :, r, j - 1] if j else w
+            v = x[:, :, r, j]
+            x[:, :, r, j] = ((v ^ a) | (v & up[..., j])) + 1
+    return x
+
+
+# words a wrong roll or a wrong in-place order would move: the slab's
+# corners and the ends of a thread's four lanes (4t and 4t + 3) in the
+# first, last and middle rows and threads
+ONE_HOT = ((0, 0), (RR - 1, LANES - 1), (0, 4), (RR - 1, 3), (15, 64),
+           (16, 63), (1, LANES - 4), (RR - 2, LANES - 1))
+
+
+def one_hot_slab(row: int, lane: int) -> torch.Tensor:
+    """A zero (SLAB, RR, LANES) int32 slab but for one word at (row, lane)
+    of each slab, another word in each slab."""
+    x = torch.zeros((SLAB, RR, LANES), dtype=torch.int32)
+    words = np.arange(1, SLAB + 1, dtype=np.uint32) * np.uint32(0x9E3779B9)
+    x[:, row, lane] = torch.from_numpy(words.view(np.int32))
+    return x
 
 
 def scal_steps(tab: torch.Tensor, t: int, p: int, k: int) -> tuple[int, int]:

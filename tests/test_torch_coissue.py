@@ -258,3 +258,114 @@ def test_probe_prints_the_experiments_keys(capsys, monkeypatch):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(line) == _experiment_keys()
     assert line["vec_body_us"] == 1.2346
+
+
+# ---------------------------------------------- the kernels' decomposition
+# coissue_v_kernel holds slab w in warp w's registers, thread t its lanes
+# 4t..4t+3 of all 32 rows; vec_body_registers follows its order (rows 31
+# down to 0 in place with the old row 31 saved, lanes 3 down to 0, lane 0
+# from thread t - 1 by a shuffle).  Tolerance 0.
+
+def _numpy_bodies(x: np.ndarray, nv: int) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        for _ in range(nv):
+            x = ((x ^ np.roll(x, 1, 2)) | (x & np.roll(x, 1, 1))) + np.int32(1)
+    return x
+
+
+def _register_bodies(slab: torch.Tensor, nvs):
+    """{nv: slab after nv bodies in the kernel's order} for each nv."""
+    x, out = coissue.to_registers(slab), {}
+    for i in range(1, max(nvs) + 1):
+        x = coissue.vec_body_registers(x)
+        if i in nvs:
+            out[i] = coissue.from_registers(x)
+    return out
+
+
+def test_register_layout_is_the_kernels(inputs):
+    slab = torch.from_numpy(inputs[1])
+    x = coissue.to_registers(slab)
+    assert x.shape == (coissue.SLAB, 32, coissue.RR, 4)
+    for w, t, r in ((0, 0, 0), (3, 17, 9), (7, 31, 31)):
+        assert torch.equal(x[w, t, r], slab[w, r, 4 * t:4 * t + 4])
+    assert torch.equal(coissue.from_registers(x), slab)
+
+
+def test_register_body_matches_the_tpu_body(inputs, jax_runs):
+    nv = SIZES["nv_r"]
+    got = _register_bodies(torch.from_numpy(inputs[1]), {nv})[nv]
+    np.testing.assert_array_equal(got.numpy(), jax_runs["r"])
+
+
+@pytest.mark.parametrize("nv", [1, 2, 7, 33])
+def test_register_body_matches_numpy_and_vec_body(inputs, nv):
+    """From a random slab; 33 bodies wrap the rows and the shuffle."""
+    slab = torch.from_numpy(inputs[1])
+    got = _register_bodies(slab, {nv})[nv]
+    np.testing.assert_array_equal(got.numpy(), _numpy_bodies(inputs[1], nv))
+    assert torch.equal(got, coissue.kernel_v(slab, nv))
+
+
+@pytest.mark.parametrize("row,lane", coissue.ONE_HOT)
+def test_register_body_on_one_hot_slabs(row, lane):
+    """One word in each slab, at the corners or at the ends of a thread's
+    four lanes: a wrong roll, a wrong in-place order or a wrong shuffle
+    moves it (the row roll shows from the second body on)."""
+    slab = coissue.one_hot_slab(row, lane)
+    assert int((slab != 0).sum()) == coissue.SLAB
+    nvs = (1, 2, 7, 33)
+    got = _register_bodies(slab, set(nvs))
+    for nv in nvs:
+        want = _numpy_bodies(slab.numpy(), nv)
+        np.testing.assert_array_equal(got[nv].numpy(), want)
+        assert torch.equal(got[nv], coissue.kernel_v(slab, nv))
+
+
+@pytest.mark.parametrize("w", [0, 5])
+def test_slabs_never_mix(inputs, w):
+    """What one warp a slab rests on: the rolls stay inside a slab, so a
+    change to slab w changes slab w alone, after any number of bodies."""
+    slab = torch.from_numpy(inputs[1])
+    other = slab.clone()
+    other[w, 31, 127] ^= 1
+    a = _register_bodies(slab, {33})[33]
+    b = _register_bodies(other, {33})[33]
+    changed = [s for s in range(coissue.SLAB) if not torch.equal(a[s], b[s])]
+    assert changed == [w]
+
+
+def test_ptxas_report_is_parsed():
+    """The probe's records read registers, spills and static shared
+    memory from the build's ptxas report, a called function's too."""
+    from lz77_tpu_torch import _build
+    text = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116coissue"
+        "_q_kernelEPKjS1_PjS2_ix' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116coissue"
+        "_q_kernelEPKjS1_PjS2_ix\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 164 registers, used 2 barriers, 16384 bytes "
+        "smem, 400 bytes cmem[0]\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_18vec_loop"
+        "EPKjPjii\n"
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116coissue"
+        "_v_kernelEPKjPji' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116coissue"
+        "_v_kernelEPKjPji\n"
+        "    16 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 372 bytes cmem[0]\n"
+    )
+    r = _build.parse_ptxas(text)
+    assert list(r) == ["_ZN12_GLOBAL__N_116coissue_q_kernelEPKjS1_PjS2_ix",
+                       "_ZN12_GLOBAL__N_18vec_loopEPKjPjii",
+                       "_ZN12_GLOBAL__N_116coissue_v_kernelEPKjPji"]
+    q, loop, v = r.values()
+    assert q == {"stack_bytes": 0, "spill_store_bytes": 0,
+                 "spill_load_bytes": 0, "registers": 164, "smem_bytes": 16384}
+    assert loop == {"stack_bytes": 8, "spill_store_bytes": 0,
+                    "spill_load_bytes": 0}
+    assert v == {"stack_bytes": 16, "spill_store_bytes": 4,
+                 "spill_load_bytes": 8, "registers": 255, "smem_bytes": 0}
