@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives seven paths, each once, with the kernels'
+shape, times both, and then drives eight paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -59,7 +59,27 @@ launch counts set to 0 just before and read just after:
   ``experiments.bigrun_r5``) at 0.125 GiB.  Its line carries each
   run's rank reports, MB/s by rank count (input bytes over the slowest
   rank's wall) and the scaling efficiency against one rank: ranks that
-  share one card measure contention on it, not scaling across cards.
+  share one card measure contention on it, not scaling across cards;
+* the edge phase (``drive_edge_path``, which runs alone too): the
+  reference's range, la 2..255 against sb 1..65535, at the points of
+  ``lz77_tpu_torch.edges.GRID`` (sb 1, 2 and 3, where offsets take 0, 1
+  and 2 bits; power-of-two sb; la 2 and 255) on 82,520 bytes of text,
+  zeros, random bytes and a run across a block boundary.  Every codec
+  kernel (K1 full and over a 2-member window split, K2, K3 whole and
+  primed, K4, K5, K6) is first held against its plain version at every
+  point; then, counts zeroed, every encode route (fused walk / merged /
+  scan where the width is byte-aligned, else their ValueError; the host
+  pipeline with both matchers; a 2x2 mesh on the card) gives
+  ``native.encode``'s stream and every decode route (``decompress``, the
+  chunked, host and native backends, the packed decode, the streamed
+  decode at stages of 64 and 4,096 tokens) the input, with one 2-rank
+  ``distributed.launch`` at (255, 1) and the CLI's default decode of a
+  ``--force-sb -s 1`` stream; last the corrupt-stream corpus
+  (``edges.corrupt_streams``: cut, flipped and padded streams) through
+  every decode backend and the streamed decode, on cuda and on the CPU,
+  with the same bytes or the same error text, and one small K3 launch
+  after it to show the context survived.  Its ``edges`` line gives the
+  grid, the checks by kernel and by route, the corpus and the seconds.
 
 K1 over a range of distances (the window axis) is held against its plain
 version on splits of 2, 3 and 4 members at la 2 / 15 / 255 x sb 15 / 4095
@@ -107,8 +127,8 @@ short) and timed on 8 MiB of zeros and of random bytes.  The two matchers
 (the sweep and the chunk matcher) are held against each other's tables on
 every case, the sweep also on its word grid: block lengths and starts at
 every residue mod 4, the stream start (dmax in mid-word), valid_ext inside
-the last block, la 2..255 against sb 3..65535, zeros, an off == 1 run and
-random bytes; both are timed on a zeros batch, a random batch and one 1 MiB
+the last block, la 2..255 against sb 3..65535 (sb 1 and 2 in the edge
+phase), zeros, an off == 1 run and random bytes; both are timed on a zeros batch, a random batch and one 1 MiB
 block at la=255, sb=65535.  The merged sweep+walk kernel is also held on
 blocks of 4095, 4096 and 4097 bytes and blocks shorter than la, and run and
 timed on the text batch and a zeros batch at tiles of 512 to 8192
@@ -140,7 +160,7 @@ import torch
 
 import lz77_tpu_torch as lt
 from lz77_tpu_torch import (_build, bitio, cli, conformance, corpus, dump,
-                            native, spec)
+                            edges, native, spec)
 from lz77_tpu_torch.experiments import coissue
 from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import (decode_walk, fused_walk, match, match_chunk,
@@ -652,10 +672,9 @@ def check_decode_packed(name, stream: bytes, data: bytes, reps=0,
     kept = int(ends[ends <= 4 * words][-1]) if (ends <= 4 * words).any() else 0
     kw = dict(off_bits=p.off_bits, out_cap_words=words)
     out, cnt = decode_walk.walk_decode_packed(toks, T, **kw)
-    outp, cntp = decode_walk.walk_decode_packed_plain(
-        toks, T, out_cap_words=words)
+    outp, cntp = decode_walk.walk_decode_packed_plain(toks, T, **kw)
     ref, _ = decode_walk.walk_decode(
-        toks, T, out_cap=min(4 * words, len(data)))
+        toks, T, out_cap=min(4 * words, len(data)), off_bits=p.off_bits)
     torch.cuda.synchronize()
     raw = out.view(torch.uint8)
     err = max(max_err(out, outp), max_err(cnt, cntp),
@@ -1526,6 +1545,242 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
              "sharded_encode_4x2", *calls)]
 
 
+# ------------------------------------------------------------- edges -----
+
+# the kernels the edge phase's routes must launch (K1 launches nowhere at
+# sb 1, where d_limit is 0, but at every other grid point)
+EDGE_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                     "walk_decode_kernel", "match_chunk_kernel",
+                     "decode_packed_kernel", "sweepwalk_kernel")
+EDGE_BACKENDS = ("device", "device-chunked", "host", "native")
+
+
+def edge_kernel_checks(x: np.ndarray, B: int, p: spec.Params) -> list:
+    """Every codec kernel against its plain version on the card at one grid
+    point, max error 0: K1 (full, and over the two ranges of a 2-member
+    window axis with their combined tables), K4 (each also against the
+    other's tables), K5 (also against K1 + K2), K2 at two sub-blocks from a
+    nonzero entry, K3 on the stream's words (whole, and primed with the
+    first half's bytes) and K6.  Each record says whether its kernel
+    launched: the wrappers return empty tables without a launch where
+    d_limit is 0."""
+    name = f"edge_la{p.la}_sb{p.sb}"
+    G = -(-x.shape[0] // B)
+    recs = []
+
+    def launched(kernel, before, rec):
+        rec["launched"] = WRAPPERS[kernel].launches > before
+        rec["grid_point"] = [p.la, p.sb]
+        recs.append(rec)
+
+    before = match.match_sweep.launches
+    rec, (args, L, O) = check_match(name, x, 0, G, B, p)
+    launched("match_kernel", before, rec)
+    before = match.match_sweep.launches
+    for rec in check_split(name, x, 0, G, B, p, 2):
+        launched("match_kernel", before, rec)
+    before = match_chunk.match_chunk.launches
+    rec, _ = check_match(name, x, 0, G, B, p, kernel="match_chunk_kernel")
+    launched("match_chunk_kernel", before, rec)
+    entry = min(3, p.la - 1)
+    for sub in (64, parse_walk.DEFAULT_SUB_BLOCK):
+        before = parse_walk.walk_parse_pack.launches
+        rec = check_walk(name, args, L, O, x.shape[0] - 333, entry, p, sub)
+        launched("walk_parse_pack_kernel", before, rec)
+    before = fused_walk.sweep_walk.launches
+    rec, _ = check_sweepwalk(name, x, 0, G, B, p, entry=entry, cut=333)
+    launched("sweepwalk_kernel", before, rec)
+    data = x.tobytes()
+    stream = native.encode(data, p)
+    T = spec.token_count(len(stream) - spec.HEADER_BYTES, p.width)
+    for split in (None, T // 2):
+        before = decode_walk.walk_decode.launches
+        rec, _ = check_decode(name if split is None else f"{name}_primed",
+                              stream, data, split=split)
+        launched("walk_decode_kernel", before, rec)
+    before = decode_walk.walk_decode_packed.launches
+    launched("decode_packed_kernel", before,
+             check_decode_packed(name, stream, data))
+    return recs
+
+
+def edge_routes(data: bytes, p: spec.Params, B: int, tmp: str) -> dict:
+    """Every encode route at one grid point, each stream equal to
+    ``native.encode``'s (the fused parsers only where the width is
+    byte-aligned, elsewhere their ValueError), and every decode route
+    giving the input back; returns the count of checks by route."""
+    want = native.encode(data, p)
+    checks = {}
+
+    def held(route, ok):
+        if not ok:
+            raise AssertionError(f"edge route {route} wrong at la {p.la} "
+                                 f"sb {p.sb}")
+        checks[route] = checks.get(route, 0) + 1
+
+    for parser in fused.PARSERS:
+        if bitio.byte_aligned(p):
+            held(f"fused_{parser}", fused.encode_bytes_fused(
+                data, p, block_size=B, parser=parser) == want)
+        else:
+            got = edges.outcome(fused.encode_bytes_fused, data, p,
+                                block_size=B, parser=parser)
+            held(f"fused_{parser}_refused", got == (
+                "ValueError",
+                "fused pipeline requires byte-aligned token width"))
+    for matcher in ("sweep", "chunk"):
+        held(f"host_{matcher}", codec.encode_bytes(
+            data, p, pipeline="host", matcher=matcher, block_size=B) == want)
+    held("sharded_2x2", sharded.encode_bytes_sharded(
+        data, p, mesh=card_mesh(2, 2), block_size=B) == want)
+    held("native_decode", native.decode(want) == data)
+    held("decompress", lt.decompress(want) == data)
+    for backend in ("device-chunked", "host", "native"):
+        held(f"decode_bytes_{backend}",
+             codec.decode_bytes(want, backend=backend) == data)
+    _, off, ln, nxt = bitio.parse_stream(want)
+    held("decode_tokens_walk_packed", decode_walk.decode_tokens_walk_packed(
+        off, ln, nxt, off_bits=p.off_bits) == data)
+    src, dst = os.path.join(tmp, "edge.lz"), os.path.join(tmp, "edge.out")
+    with open(src, "wb") as f:
+        f.write(want)
+    for stage in (64, 4096):
+        n = codec.decode_file_device(src, dst, tokens_per_stage=stage)
+        held(f"decode_file_device_{stage}", n == len(data)
+             and read(dst) == data)
+    return checks
+
+
+def edge_corpus(seed: int, tmp: str) -> tuple[int, int]:
+    """The corrupt-stream corpus (``edges.corrupt_streams`` of the small
+    input's streams) through every decode backend and the streamed device
+    decode on cuda and on the CPU: the same bytes, or the same exception and
+    text, else it raises.  Returns (streams, runs that raised on cuda)."""
+    small = edges.make_input(seed, **edges.SMALL_SIZES)
+    corpus = edges.corrupt_streams(seed, {
+        f"la{la}_sb{sb}": native.encode(small, spec.Params(la, sb))
+        for la, sb in edges.CORRUPT_GRID})
+    src = os.path.join(tmp, "corrupt.lz")
+    raised = 0
+
+    def streamed(device):
+        dst = os.path.join(tmp, f"corrupt.{device}")
+        n = codec.decode_file_device(src, dst, tokens_per_stage=64,
+                                     device=device)
+        out = read(dst)
+        if n != len(out):
+            raise AssertionError(f"decode_file_device said {n} bytes, "
+                                 f"wrote {len(out)}")
+        return out
+
+    for name, s in corpus.items():
+        with open(src, "wb") as f:
+            f.write(s)
+        runs = [(b, lambda d, b=b: codec.decode_bytes(s, backend=b, device=d))
+                for b in EDGE_BACKENDS]
+        runs.append(("decode_file_device", streamed))
+        for what, fn in runs:
+            on_card = edges.outcome(fn, "cuda")
+            torch.cuda.synchronize()
+            on_cpu = edges.outcome(fn, "cpu")
+            if on_card != on_cpu:
+                raise AssertionError(
+                    f"corrupt stream {name}, {what}: cuda gives "
+                    f"{str(on_card)[:300]}, cpu {str(on_cpu)[:300]}")
+            raised += isinstance(on_card, tuple)
+    return len(corpus), raised
+
+
+def drive_edge_path(seed: int = 0) -> tuple[dict, dict]:
+    """The reference's parameter edges on the card (``edges.GRID``: la 2..255
+    against sb 1..65535, off_bits 0, 1 and 2 among them), on
+    ``edges.make_input`` at ``edges.CARD_SIZES`` from ``seed``: every codec
+    kernel against its plain version at every grid point; then, counts
+    zeroed, every encode and decode route at every grid point, one 2-rank
+    ``distributed.launch`` at (255, 1), the CLI's default decode of a
+    ``--force-sb -s 1`` stream, and the corrupt-stream corpus on cuda
+    against the CPU, after which one small K3 launch must still succeed.
+    Prints the ``edges`` line; returns (record, launches of the routes,
+    the ranks' K1 and K4 among them)."""
+    t0 = time.perf_counter()
+    sizes = edges.CARD_SIZES
+    B = sizes["block_size"]
+    data = edges.make_input(seed, **sizes)
+    x = np.frombuffer(data, np.uint8)
+    grid = [spec.Params(la, sb) for la, sb in edges.GRID]
+    kernel_recs = []
+    for p in grid:
+        kernel_recs += edge_kernel_checks(x, B, p)
+    # checks by kernel (K1's ranged members and their combined tables
+    # apart), and the grid points where a wrapper answered without a launch
+    by_kernel, not_launched = {}, {}
+    for r in kernel_recs:
+        k = r["kernel"] + ("_ranged" if "members" in r or "d_lo" in r
+                           else "")
+        by_kernel[k] = by_kernel.get(k, 0) + 1
+        if not r["launched"] and r["grid_point"] not in \
+                not_launched.setdefault(k, []):
+            not_launched[k].append(r["grid_point"])
+    t1 = time.perf_counter()
+
+    reset_counts()
+    by_route = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for p in grid:
+            for route, n in edge_routes(data, p, B, tmp).items():
+                by_route[route] = by_route.get(route, 0) + n
+        # the multi-process encode at off_bits 0: two ranks on cuda:0
+        inp, out = os.path.join(tmp, "mh_in"), os.path.join(tmp, "mh.lz")
+        with open(inp, "wb") as f:
+            f.write(data)
+        reports = distributed.launch(
+            ["-i", inp, "-o", out, "--mode", "bytes", "-l", "255", "-s", "1",
+             "--block-size", str(B)], 2, timeout=300)
+        if read(out) != native.encode(data, spec.Params(255, 1)):
+            raise AssertionError("distributed encode at (255, 1) differs")
+        by_route["distributed_2_ranks"] = 1
+        # the CLI: --force-sb -s 1 encoded, then its default decode
+        lz, back = os.path.join(tmp, "cli.lz"), os.path.join(tmp, "cli.out")
+        run_cli(["-c", "--force-sb", "-s", "1", "-l", "4", "-i", inp,
+                 "-o", lz])
+        run_cli(["-d", "-i", lz, "-o", back])
+        if read(lz) != native.encode(data, spec.Params(4, 1)) \
+                or read(back) != data:
+            raise AssertionError("CLI at -l 4 -s 1 --force-sb differs")
+        by_route["cli_force_sb_1"] = 1
+        t2 = time.perf_counter()
+        n_corrupt, n_raised = edge_corpus(seed, tmp)
+        t3 = time.perf_counter()
+    launches = read_counts(EDGE_PATH_KERNELS, "the edge path")
+    # the context survived the corpus: one small K3 launch, held against
+    # its plain version (so not counted)
+    tail = data[:5000]
+    check_decode("after_corpus", native.encode(tail, spec.Params(255, 1)),
+                 tail)
+    torch.cuda.synchronize()
+    for r in reports:
+        for k in RANK_KERNELS:
+            launches[k] += r["launches"][k]
+    rec = {
+        "grid": [list(g) for g in edges.GRID],
+        "input_bytes": len(data), "block_size": B,
+        "kernel_checks": by_kernel,
+        "kernel_checks_without_launch": not_launched,
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_recs),
+        "route_checks": by_route,
+        "corrupt_streams": n_corrupt,
+        "corrupt_runs": n_corrupt * (len(EDGE_BACKENDS) + 1),
+        "corrupt_runs_cuda_equals_cpu": n_corrupt * (len(EDGE_BACKENDS) + 1),
+        "corrupt_runs_raised": n_raised,
+        "context_usable_after_corpus": True,
+        "launches": launches,
+        "kernel_checks_s": t1 - t0, "routes_s": t2 - t1,
+        "corpus_s": t3 - t2, "seconds": time.perf_counter() - t0,
+    }
+    emit({"edges": rec})
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2047,8 +2302,11 @@ def main() -> int:
                        "big_runs": big, "launches": mh_launches})
         emit({"multihost_path": mh_rec})
 
+    # ---- the reference's parameter edges and corrupt streams -----------
+    _, edge_launches = drive_edge_path(a.seed)
+
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
-             probe_launches, sh_launches, mh_launches)
+             probe_launches, sh_launches, mh_launches, edge_launches)
     kernels = []
     for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]

@@ -310,7 +310,7 @@ static __global__ void __launch_bounds__(REPLAY_THREADS) replay_kernel(
 static inline cudaError_t launch_replay(ReplayArgs a, int32_t* sums,
                                         int32_t* sync, int32_t* cnt,
                                         int off_bits, cudaStream_t stream) {
-  if (a.tile_words <= 0 || a.tile_words % 64 || off_bits < 1 ||
+  if (a.tile_words <= 0 || a.tile_words % 64 || off_bits < 0 ||
       off_bits > 16 || a.d_limit >= (1 << off_bits))
     return cudaErrorInvalidValue;
   const int nb = (int)(((long long)a.T + SCAN_CHUNK - 1) / SCAN_CHUNK);

@@ -36,7 +36,10 @@ def _decode_chunk(off, ln, nxt, count, prev_tail, *, la):
     if H == 0:
         return out, out_len, prev_tail
     ext = torch.cat([prev_tail, out])
-    new_tail = ext[out_len + torch.arange(H, device=out.device)]
+    # a corrupt length can put out_len past the chunk's buffer: the start
+    # is clamped as jax.lax.dynamic_slice clamps it, on the device
+    start = torch.clamp(out_len, max=out.shape[0])
+    new_tail = ext[start + torch.arange(H, device=out.device)]
     return out, out_len, new_tail
 
 

@@ -63,9 +63,12 @@ def decode_tokens(
     out_len = ends[T - 1]
 
     # Which token covers each output byte: +1 at every token start, cumsum.
-    # Slot W takes what the padding tokens would add.
+    # Slot W takes what the padding tokens would add, and what tokens that
+    # a corrupt length puts past the buffer add (JAX's mode="drop"): no
+    # byte reads it.
     ind = torch.zeros(W + 1, **i64).index_add_(
-        0, torch.where(valid, H + starts, W), valid.to(torch.int64)
+        0, torch.where(valid, H + starts, W).clamp(max=W),
+        valid.to(torch.int64)
     )
     tok_of = torch.cumsum(ind, 0)[:W] - 1
     tclamp = torch.clamp(tok_of, 0, T - 1)
@@ -78,7 +81,8 @@ def decode_tokens(
 
     val = torch.zeros(W + 1, dtype=torch.uint8, device=dev)
     val[:H] = prev_tail
-    val[torch.where(valid, H + starts + ln, W)] = nxt.to(torch.uint8)
+    val[torch.where(valid, H + starts + ln, W).clamp(max=W)] = \
+        nxt.to(torch.uint8)
 
     # Collapse copy chains: after k rounds every chain of length <= 2^k is
     # resolved; ceil(log2(W)) rounds resolve everything.

@@ -133,8 +133,8 @@ def _replay_pointers(toks, total: int, out_cap: int, win, wp: int,
 
 def _limits(off_bits: int, d_limit: int | None, len_limit: int) -> int:
     """Check the replay's limits -> d_limit (default 2^off_bits - 1)."""
-    if not 1 <= off_bits <= 16:
-        raise ValueError(f"off_bits {off_bits} outside [1, 16]")
+    if not 0 <= off_bits <= 16:
+        raise ValueError(f"off_bits {off_bits} outside [0, 16]")
     if d_limit is None:
         d_limit = (1 << off_bits) - 1
     if not 0 <= d_limit < (1 << off_bits):
@@ -355,8 +355,8 @@ def walk_decode_packed(
         raise ValueError("toks must be a contiguous 1-D int32 tensor")
     if not 0 <= total <= toks.shape[0]:
         raise ValueError(f"total {total} outside [0, {toks.shape[0]}]")
-    if not 1 <= off_bits <= 16:
-        raise ValueError(f"off_bits {off_bits} outside [1, 16]")
+    if not 0 <= off_bits <= 16:
+        raise ValueError(f"off_bits {off_bits} outside [0, 16]")
     if not 0 <= out_cap_words < (1 << 29):
         raise ValueError(f"out_cap_words {out_cap_words} outside [0, 2^29)")
     if not toks.is_cuda:
