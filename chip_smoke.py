@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives eight paths, each once, with the kernels'
+shape, times both, and then drives nine paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -79,7 +79,21 @@ launch counts set to 0 just before and read just after:
   every decode backend and the streamed decode, on cuda and on the CPU,
   with the same bytes or the same error text, and one small K3 launch
   after it to show the context survived.  Its ``edges`` line gives the
-  grid, the checks by kernel and by route, the corpus and the seconds.
+  grid, the checks by kernel and by route, the corpus and the seconds;
+* the XLA matchers' phase (``drive_xla_matcher_path``, which runs alone
+  too): the JAX package's ``brute``, ``sorted``, ``chunked`` and
+  ``bitplane``, plain tensor code on the card, each held against K1 with
+  (L, O) error 0 on 1 MiB blocks of text, zeros and random bytes at the
+  defaults, ``sorted``, ``chunked`` and ``bitplane`` at la 255, sb 65535,
+  every matcher at every point of ``edges.GRID``, ``brute_range`` and
+  ``bitplane_range`` split 2 and 4 ways and combined; then, counts zeroed,
+  the CLI's host pipeline with each name on 8 MiB (decoded by K3), the
+  fused walk with ``sorted`` (K2 on its tables), a 2x2 mesh on the card
+  with ``bitplane`` and ``brute`` on the window axis, two ranks with
+  ``chunked``, K1, K4 and K5 launched by none.  Its ``xla_matchers`` line
+  gives each matcher's median time at each shape with K1's beside it, its
+  peak device memory, its device kernels a call, the grid and route
+  checks, the matchers' calls on the routes, and the card.
 
 K1 over a range of distances (the window axis) is held against its plain
 version on splits of 2, 3 and 4 members at la 2 / 15 / 255 x sb 15 / 4095
@@ -245,6 +259,13 @@ BIG_RUN_GB = 0.125
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def progress(what: str, t0: float) -> None:
+    """One line on stderr, so a run cut by its time limit shows how far it
+    got."""
+    print(f"chip_smoke: {time.perf_counter() - t0:9.2f} s  {what}",
+          file=sys.stderr, flush=True)
 
 
 def make_text(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -1781,6 +1802,272 @@ def drive_edge_path(seed: int = 0) -> tuple[dict, dict]:
     return rec, launches
 
 
+# ------------------------------------------------------- XLA matchers -----
+
+XLA_MATCHERS = ("brute", "sorted", "chunked", "bitplane")
+# the kernels the XLA matchers' routes must launch: K2 on their tables (the
+# fused walk, the sharded walk) and K3 for the decodes; never K1, K4 or K5
+XLA_PATH_KERNELS = ("walk_parse_pack_kernel", "walk_decode_kernel")
+XLA_NEVER = ("match_kernel", "match_chunk_kernel", "sweepwalk_kernel")
+
+
+@contextlib.contextmanager
+def counting_matchers(calls: dict):
+    """While active, every call of an XLA matcher or ranged form in this
+    process (through ``match.get_matcher`` or the window axis) adds one to
+    ``calls[name]``."""
+    from lz77_tpu_torch.ops import bitplane
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return run
+
+    saved = [(match.MATCHERS, n, match.MATCHERS[n])
+             for n in ("brute", "sorted", "chunked")]
+    saved += [(vars(m), n, getattr(m, n)) for m, n in (
+        (match, "find_matches_brute_range"),
+        (bitplane, "find_matches_bitplane"),
+        (bitplane, "find_matches_bitplane_range"))]
+    for table, n, fn in saved:
+        table[n] = counted(n.replace("find_matches_", ""), fn)
+    try:
+        yield
+    finally:
+        for table, n, fn in saved:
+            table[n] = fn
+
+
+def device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` launches (copies left out), from
+    ``torch.profiler`` around two calls on the same input.  A one-kernel
+    fill opens the profile, as its first activities may be lost: the count
+    is odd where the fill was kept, so half of it, rounded down, is a
+    call's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.name.startswith("Mem")) // 2
+
+
+def xla_case(name, args, p, reps) -> dict:
+    """One XLA matcher on one batch on the card against K1's tables, error
+    0; its median CUDA-event time over ``reps`` calls after the checked
+    one, K1's beside it, and its peak device memory above what was
+    allocated before the call."""
+    fn = match.get_matcher(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    L, O = fn(*args, la=p.la, sb=p.sb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    L1, O1 = match.match_sweep(*args, la=p.la, sb=p.sb)
+    err = max(max_err(L, L1), max_err(O, O1))
+    if err:
+        raise AssertionError(f"XLA matcher {name} != match_kernel at "
+                             f"la {p.la} sb {p.sb}: error {err}")
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn(*args, la=p.la, sb=p.sb)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return {"ms": statistics.median(times) if times else None,
+            "match_kernel_ms": time_ms(
+                lambda: match.match_sweep(*args, la=p.la, sb=p.sb), 5),
+            "peak_device_bytes": peak, "max_abs_err": err}
+
+
+def drive_xla_matcher_path(seed: int = 0) -> tuple[dict, dict]:
+    """The JAX package's XLA matchers on the card (plain tensor code, no
+    kernel of their own), each held against K1 with (L, O) error 0: at the
+    defaults on a 1 MiB block of text, of zeros and of random bytes from
+    ``seed``; ``sorted``, ``chunked`` and ``bitplane`` at la 255, sb 65535
+    on the text block (``brute`` left out: its stack of 254 equality rows
+    a distance, 65,535 distances); every matcher at every point of
+    ``edges.GRID`` on the edge phase's input; ``brute_range`` and
+    ``bitplane_range`` split 2 and 4 ways (the window axis's ranges),
+    the members combined by ``combine_key``.  Then, counts zeroed, the
+    routes: the CLI's host pipeline with each name on 8 MiB of text (the
+    stream against ``native.encode``, decoded by the CLI's default decode,
+    K3), ``codec.encode_bytes(pipeline="fused", matcher="sorted")`` (K2 on
+    its tables), ``encode_bytes_sharded`` on a 2x2 mesh on cuda:0 with
+    ``bitplane`` and ``brute`` on the window axis, and a 2-rank
+    ``distributed.launch`` with ``chunked``; K1, K4 and K5 must launch on
+    none of them.  Prints the ``xla_matchers`` line; returns (record,
+    launches)."""
+    t0 = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(seed + 11)
+    p0, deep = spec.Params(), spec.Params(255, 65535)
+    B = codec.DEFAULT_BLOCK_SIZE
+    # block 1 of each 2 MiB input: a full halo of the same kind before it
+    inputs = {"text": make_text(rng, 2 * B),
+              "zeros": np.zeros(2 * B, np.uint8),
+              "random": rng.integers(0, 256, 2 * B, dtype=np.uint8)}
+    by_matcher = {m: {} for m in XLA_MATCHERS}
+    kernels_a_call = {}
+    for kind, xs in inputs.items():
+        args, _ = batch_on_card(xs, 1, 1, B, p0)
+        for m in XLA_MATCHERS:
+            by_matcher[m][f"{kind}_la15_sb4095"] = xla_case(m, args, p0, 3)
+            progress(f"xla {m} {kind} la 15 sb 4095", t0)
+            if kind == "text":
+                kernels_a_call[m] = device_kernels(
+                    lambda: match.get_matcher(m)(*args, la=15, sb=4095))
+                progress(f"xla {m} kernels a call", t0)
+        del args
+    args, _ = batch_on_card(inputs["text"], 1, 1, B, deep)
+    for m in ("sorted", "chunked", "bitplane"):
+        by_matcher[m]["text_la255_sb65535"] = xla_case(m, args, deep, 1)
+        progress(f"xla {m} text la 255 sb 65535", t0)
+    del args
+    t1 = time.perf_counter()
+
+    # every point of the edge grid, on the edge phase's input, one batch
+    edge = np.frombuffer(edges.make_input(seed, **edges.CARD_SIZES),
+                         np.uint8)
+    eb = edges.CARD_SIZES["block_size"]
+    grid_checks = {m: 0 for m in XLA_MATCHERS}
+    grid_s = {m: 0.0 for m in XLA_MATCHERS}
+    for la, sb in edges.GRID:
+        p = spec.Params(la, sb)
+        args, _ = batch_on_card(edge, 0, -(-edge.shape[0] // eb), eb, p)
+        L1, O1 = match.match_sweep(*args, la=la, sb=sb)
+        for m in XLA_MATCHERS:
+            ts = time.perf_counter()
+            L, O = match.get_matcher(m)(*args, la=la, sb=sb)
+            torch.cuda.synchronize()
+            grid_s[m] += time.perf_counter() - ts
+            if max(max_err(L, L1), max_err(O, O1)):
+                raise AssertionError(f"XLA matcher {m} != match_kernel at "
+                                     f"edge point la {la} sb {sb}")
+            grid_checks[m] += 1
+            progress(f"xla {m} edge la {la} sb {sb}", t0)
+        del args, L1, O1
+    t2 = time.perf_counter()
+
+    # the ranged forms over the window axis's ranges, combined
+    args, _ = batch_on_card(inputs["text"], 1, 1, B, p0)
+    L1, O1 = match.match_sweep(*args, la=p0.la, sb=p0.sb)
+    ranged = {}
+    for m in ("brute", "bitplane"):
+        for n_win in (2, 4):
+            ranges, fn = sharded._win_match(m, p0, n_win)
+            keys, ms = [], []
+            for d_lo, d_hi in ranges:
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                L, O = fn(*args, d_lo=d_lo, d_hi=d_hi)
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+                keys.append(match.combine_key(L, O, p0.d_limit))
+            L, O = match.split_key(torch.amax(torch.stack(keys), dim=0),
+                                   p0.d_limit)
+            err = max(max_err(L, L1), max_err(O, O1))
+            if err:
+                raise AssertionError(f"{m}_range split {n_win} ways != "
+                                     f"match_kernel")
+            progress(f"xla {m}_range split {n_win} ways", t0)
+            ranged[f"{m}_range_{n_win}"] = {
+                "ranges": [list(r) for r in ranges], "member_ms": ms,
+                "max_abs_err": err}
+    del args, L1, O1, L, O, keys
+    t3 = time.perf_counter()
+
+    # the routes, counts zeroed before and read after
+    text8 = make_text(rng, 8 << 20).tobytes()
+    want8 = native.encode(text8, p0)
+    calls: dict = {}
+    routes = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp, counting_matchers(calls):
+        inp = os.path.join(tmp, "text8")
+        with open(inp, "wb") as f:
+            f.write(text8)
+        lz, back = os.path.join(tmp, "t.lz"), os.path.join(tmp, "t.out")
+        for m in XLA_MATCHERS:
+            rep = run_cli(["-c", "--pipeline", "host", "--matcher", m,
+                           "-i", inp, "-o", lz])
+            if read(lz) != want8 or rep["matcher"] != m:
+                raise AssertionError(f"CLI --matcher {m} stream differs")
+            drep = run_cli(["-d", "-i", lz, "-o", back])
+            if read(back) != text8:
+                raise AssertionError(f"CLI decode of the {m} stream differs")
+            progress(f"xla route cli host {m}", t0)
+            routes[f"cli_host_{m}"] = {"encode_wall_s": rep["wall_s"],
+                                       "decode_wall_s": drep["wall_s"]}
+        ts = time.perf_counter()
+        got = codec.encode_bytes(text8, p0, pipeline="fused",
+                                 matcher="sorted")
+        torch.cuda.synchronize()
+        if got != want8 or lt.decompress(got) != text8:
+            raise AssertionError("fused walk with matcher sorted differs")
+        routes["fused_walk_sorted"] = {"wall_s": time.perf_counter() - ts}
+        progress("xla route fused walk sorted", t0)
+        head = text8[: 2 << 20]
+        want2 = native.encode(head, p0)
+        for m in ("bitplane", "brute"):
+            ts = time.perf_counter()
+            got = sharded.encode_bytes_sharded(
+                head, p0, mesh=card_mesh(2, 2), block_size=512 << 10,
+                batch_blocks=2, matcher=m)
+            torch.cuda.synchronize()
+            if got != want2 or lt.decompress(got) != head:
+                raise AssertionError(f"sharded 2x2 with {m} differs")
+            routes[f"sharded_2x2_{m}"] = {"wall_s": time.perf_counter() - ts,
+                                          "input_bytes": len(head)}
+            progress(f"xla route sharded 2x2 {m}", t0)
+        out = os.path.join(tmp, "mh.lz")
+        ts = time.perf_counter()
+        reports = distributed.launch(
+            ["-i", inp, "-o", out, "--matcher", "chunked"], 2, timeout=300)
+        if read(out) != want8:
+            raise AssertionError("2-rank encode with chunked differs")
+        routes["distributed_2_ranks_chunked"] = {
+            "wall_s": time.perf_counter() - ts,
+            "rank_launches": [r["launches"] for r in reports]}
+    launches = read_counts(XLA_PATH_KERNELS, "the XLA matchers' routes")
+    for r in reports:
+        for k in RANK_KERNELS:
+            launches[k] += r["launches"][k]
+    wrong = {k: launches[k] for k in XLA_NEVER if launches[k]}
+    if wrong:
+        raise AssertionError(f"the XLA matchers' routes launched {wrong}")
+    rec = {
+        "card": card, "block_bytes": B, "by_matcher": by_matcher,
+        "device_kernels_a_call_text_la15_sb4095": kernels_a_call,
+        "grid": [list(g) for g in edges.GRID],
+        "grid_input_bytes": int(edge.shape[0]), "grid_checks": grid_checks,
+        "grid_s": grid_s, "ranged": ranged, "routes": routes,
+        "route_input_bytes": len(text8),
+        "matcher_calls_on_routes_in_this_process": calls,
+        "launches": launches, "tolerance": 0,
+        "tables_s": t1 - t0, "grid_phase_s": t2 - t1, "ranged_s": t3 - t2,
+        "routes_s": time.perf_counter() - t3,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit({"xla_matchers": rec})
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2305,8 +2592,12 @@ def main() -> int:
     # ---- the reference's parameter edges and corrupt streams -----------
     _, edge_launches = drive_edge_path(a.seed)
 
+    # ---- the JAX package's XLA matchers, against K1, and their routes ---
+    _, xla_launches = drive_xla_matcher_path(a.seed)
+
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
-             probe_launches, sh_launches, mh_launches, edge_launches)
+             probe_launches, sh_launches, mh_launches, edge_launches,
+             xla_launches)
     kernels = []
     for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]

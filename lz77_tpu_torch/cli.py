@@ -11,8 +11,10 @@ runs here.  What differs follows from the device rule: ``--backend`` is
 ``device|native|numpy`` and ``--decode-backend`` is ``device|host|native``,
 both ``device`` by default, and nothing falls back; ``--device cuda|cpu``
 takes the place of ``--platform`` (``cpu`` runs the kernels' plain PyTorch
-versions); ``--matcher`` names this package's two kernels (``sweep``,
-``chunk``; ``pallas_bitplane`` and ``pallas`` are accepted as aliases).
+versions); ``--matcher`` takes this package's two kernels (``sweep``, the
+default, and ``chunk``), the JAX package's XLA matchers as plain tensor
+code (``brute``, ``sorted``, ``chunked``, ``bitplane``) and the JAX names
+of the two TPU kernels as aliases (``pallas_bitplane``, ``pallas``).
 ``--pipeline sharded`` runs over a mesh of devices (``--mesh DATAxWIN``;
 default every visible card on the data axis); ``--host-devices N`` gives
 the mesh N members on the device that ``--device`` names (``cpu`` unless
@@ -88,9 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-blocks", type=int, default=None,
                    help="Blocks encoded per device batch")
     p.add_argument("--matcher", default=DEFAULT_MATCHER,
-                   help="Match-finder kernel: sweep or chunk (both exact, "
-                        "same streams); pallas_bitplane and pallas are "
-                        "aliases of the two")
+                   help="Match finder: sweep (default) or chunk (kernels), "
+                        "brute, sorted, chunked or bitplane (tensor code); "
+                        "pallas_bitplane and pallas are aliases of sweep "
+                        "and chunk.  All exact, same streams")
     p.add_argument("--manifest", default=None,
                    help="Checkpoint manifest path (enables resumable encode)")
     p.add_argument("--resume", action="store_true",
@@ -479,11 +482,9 @@ def _encode(data: bytes, params: spec.Params, args):
             data, params, matcher=args.matcher, stats=stats, **kwargs,
         )
     else:
-        if args.pipeline == "host":
-            kwargs["matcher"] = args.matcher
         out = codec.encode_bytes(
-            data, params, pipeline=args.pipeline, stats=stats,
-            device=args.device, **kwargs,
+            data, params, pipeline=args.pipeline, matcher=args.matcher,
+            stats=stats, device=args.device, **kwargs,
         )
     return out, {
         "backend": "device",

@@ -27,8 +27,10 @@ keys.  Where it differs, it does so by decision:
 * The C reference binary is built from the sources in the directory that
   ``$LZ77_REFERENCE_DIR`` names.  Without it the rows have no C columns:
   missing, not failed.
-* :func:`run_big_streamed`'s default matcher is the port's ``sweep`` (the
-  port refuses the JAX package's XLA ``chunked``), and its self-check
+* :func:`run_conformance` and :func:`run_big_streamed` take every matcher
+  name; the default is the port's ``sweep`` (K1), where the JAX runner's
+  big run defaults to its XLA ``chunked``.  :func:`run_big_streamed`'s
+  self-check
   decodes in a ``python -m lz77_tpu_torch.cli -d ... --report --device D``
   subprocess.  ``--big-pipeline sharded`` runs ``encode_file``'s sharded
   pipeline on a one-member mesh on ``--device`` when it is given, else on
@@ -80,7 +82,7 @@ def _ref_run(binary: str, mode: str, src: str, dst: str) -> None:
                    check=True, capture_output=True)
 
 
-def _our_encode(data: bytes, backend: str, device) -> bytes:
+def _our_encode(data: bytes, backend: str, device, matcher: str) -> bytes:
     params = spec.Params()
     if backend == "native":
         from . import native
@@ -89,10 +91,11 @@ def _our_encode(data: bytes, backend: str, device) -> bytes:
     if backend == "fused":
         from .models import fused
 
-        return fused.encode_bytes_fused(data, params, device=device)
+        return fused.encode_bytes_fused(data, params, matcher=matcher,
+                                        device=device)
     from .models import codec
 
-    return codec.encode_bytes(data, params, device=device)
+    return codec.encode_bytes(data, params, matcher=matcher, device=device)
 
 
 def _our_decode(stream: bytes, device) -> bytes:
@@ -105,13 +108,22 @@ def run_conformance(
     scale: int = 1, backend: str = "native", workdir: str | None = None,
     *, device: str | torch.device | None = None,
     streams: dict | None = None,
+    matcher: str | None = None,
 ) -> list[dict]:
     """Run the per-file conformance matrix; returns one record per file.
 
-    ``streams``, if given, receives each file's stream under its name."""
+    ``streams``, if given, receives each file's stream under its name.
+    ``matcher`` (default ``sweep``) is the device encoders' match finder,
+    any name of ``ops.match.get_matcher``; the native encoder has none and
+    raises if one is given."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; available: "
                          f"{', '.join(BACKENDS)}")
+    if matcher is not None and backend == "native":
+        raise ValueError("backend 'native' takes no matcher")
+    from .ops import match as match_ops
+
+    matcher = match_ops.route_matcher(matcher or DEFAULT_MATCHER)
     device = device_lib.resolve(device)
     own_tmp = None
     if workdir is None:
@@ -122,7 +134,7 @@ def run_conformance(
     rows = []
     for name, data in sorted(files.items()):
         t0 = time.perf_counter()
-        ours = _our_encode(data, backend, device)
+        ours = _our_encode(data, backend, device, matcher)
         enc_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         out = _our_decode(ours, device)

@@ -365,27 +365,22 @@ def encode_bytes(
     """Compress ``data`` into a complete reference-format stream.
 
     ``pipeline``: "fused" (device-resident, byte-aligned widths; takes
-    ``sub_block``, int or None; its one matcher is ``sweep``) or "host"
-    (device match + host parse, any width; takes ``matcher``, ``retries``
-    (default 2), ``fault_injector`` and ``match_fn``, a replacement for its
-    match phase such as ``parallel.sharded.sharded_match_fn``).  Both emit
-    the same stream.  A matcher the fused pipeline does not run raises
-    ``ValueError``; an argument the chosen pipeline does not take raises
-    ``TypeError``.  The sharded pipeline's bytes entry point is
+    ``sub_block``, int or None) or "host" (device match + host parse, any
+    width; takes ``retries`` (default 2), ``fault_injector`` and
+    ``match_fn``, a replacement for its match phase such as
+    ``parallel.sharded.sharded_match_fn``).  Both take every ``matcher``
+    name of ``ops.match.get_matcher`` and emit the same stream.  An
+    argument the chosen pipeline does not take raises ``TypeError``.  The
+    sharded pipeline's bytes entry point is
     ``parallel.sharded.encode_bytes_sharded``.
     """
     if pipeline == "fused":
-        if match_ops.route_matcher(matcher) != "sweep":
-            raise ValueError(
-                "pipeline 'fused' has one matcher, 'sweep'; "
-                f"use pipeline='host' for matcher {matcher!r}"
-            )
         _refuse(pipeline, retries=retries, fault_injector=fault_injector,
                 match_fn=match_fn)
         return fused.encode_bytes_fused(
             data, params, block_size=block_size, batch_blocks=batch_blocks,
             sub_block=None if sub_block is _NOT_GIVEN else sub_block,
-            stats=stats, device=device,
+            stats=stats, matcher=matcher, device=device,
         )
     if pipeline != "host":
         raise ValueError(
@@ -544,7 +539,8 @@ def encode_file(
     a one-member mesh on ``device`` when one is given, else every visible
     card), each shard's walk chained from the one before.  The fused and
     sharded pipelines checkpoint at BATCH granularity (one manifest record
-    per device batch) and require a byte-aligned token width.
+    per device batch) and require a byte-aligned token width.  Every
+    pipeline takes every ``matcher`` name (``ops.match.get_matcher``).
     """
     _t0 = time.perf_counter()
     params = params or spec.Params()
@@ -552,11 +548,6 @@ def encode_file(
         raise ValueError(f"unknown pipeline {pipeline!r}")
     if pipeline != "sharded" and mesh is not None:
         raise TypeError(f"pipeline {pipeline!r} takes no mesh argument")
-    if pipeline == "fused" and match_ops.route_matcher(matcher) != "sweep":
-        raise ValueError(
-            "pipeline 'fused' has one matcher, 'sweep'; "
-            f"use pipeline='host' for matcher {matcher!r}"
-        )
     if pipeline != "host":
         return _encode_file_batched(
             in_path, out_path, params, pipeline=pipeline,
@@ -766,7 +757,8 @@ def _encode_file_batched(
         def make_iter(start_batch: int, entry: int):
             return fused.iter_batches_fused(
                 x, params, block_size=block_size, batch_blocks=batch_blocks,
-                start_batch=start_batch, entry=entry, stats=st, device=dev,
+                matcher=matcher, start_batch=start_batch, entry=entry,
+                stats=st, device=dev,
             )
     n = os.path.getsize(in_path)
     x = (

@@ -10,13 +10,15 @@ A batch is G consecutive blocks, one contiguous span of the input.  The
 batch step has three forms, chosen by ``parser``:
 
 * ``"walk"`` (the default, :func:`encode_batch_walk`): the match sweep gives
-  (L, O) for every position (``ops.match``); ``build_lox`` fuses them with
+  (L, O) for every position (``ops.match``; any matcher by name, K1 by
+  default); ``build_lox`` fuses them with
   the bytes into one word per position; the walk kernel (``ops.parse_walk``)
   follows the greedy chain from the entry the previous batch left and writes
   packed token words, their count and the next entry; the words are cut to
   ``width/8`` bytes each.
 * ``"merged"`` (``ops.fused_walk.encode_batch_sweepwalk``): the same result
-  from one kernel that keeps the match tables on the chip.
+  from one kernel that keeps the match tables on the chip; it runs its own
+  sweep, so any matcher but ``sweep`` raises.
 * ``"scan"`` (:func:`encode_batch_device`): the match sweep, then the parse
   as plain tensor code — per-sub-block jump tables squared into entry->exit
   maps, the maps composed by a prefix scan, token starts by a batched
@@ -76,6 +78,7 @@ def encode_batch_walk(
     la: int,
     sb: int,
     sub_block: int = parse_walk.DEFAULT_SUB_BLOCK,
+    matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ):
     """One fused device step over a batch of consecutive blocks.
@@ -85,7 +88,8 @@ def encode_batch_walk(
     tokens; counts is a (G,) zero placeholder (the walk does not split its
     count by block); total_tokens and exit_entry are (1,) int32 tensors
     that stay on the device, so the next batch can take ``exit_entry`` as
-    its ``entry0`` without a host round trip.
+    its ``entry0`` without a host round trip.  ``matcher`` names the match
+    tables' finder (``ops.match.get_matcher``; K1 by default).
     """
     params = spec.Params(la=la, sb=sb)
     if params.width % 8 != 0:
@@ -101,7 +105,7 @@ def encode_batch_walk(
     entry0 = prep(entry0, torch.int32).reshape(1)
     G, B = blocks.shape
     N = G * B
-    L, O = match_ops.match_sweep(
+    L, O = match_ops.get_matcher(matcher)(
         blocks, prep(halos, torch.uint8), rights, prep(avails, torch.int32),
         prep(valid_exts, torch.int32), la=la, sb=sb,
     )
@@ -130,9 +134,11 @@ def encode_batch_device(
     sub_block: int = DEFAULT_SCAN_SUB_BLOCK,
     with_map: bool = False,
     head_w: int = 8192,
+    matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ):
-    """One fused device step, scan-parser variant (plain tensor code).
+    """One fused device step, scan-parser variant (plain tensor code);
+    ``matcher`` names the match tables' finder (K1 by default).
 
     Returns (payload, counts, total_tokens, exit_entry):
       payload: (M*s*nb,) uint8 — packed token bytes, valid prefix only
@@ -169,7 +175,7 @@ def encode_batch_device(
     i64 = dict(dtype=torch.int64, device=dev)
 
     # ---- 1. match tables (the hot phase), flattened to the batch span ----
-    L, O = match_ops.match_sweep(
+    L, O = match_ops.get_matcher(matcher)(
         blocks, prep(halos, torch.uint8), rights, prep(avails, torch.int32),
         prep(valid_exts, torch.int32), la=la, sb=sb,
     )
@@ -268,10 +274,13 @@ def _resolve_fused_config(
     block_size: int | None,
     sub_block: int | None,
     parser: str = "walk",
+    matcher: str = match_ops.DEFAULT_MATCHER,
 ):
     """Shared knob resolution: (block_size, sub_block, parser) for an
     n-byte input.  ``sub_block`` is the walk's or the scan's; the merged
-    kernel has its own fixed tile and takes none."""
+    kernel has its own fixed tile and takes none, and its own sweep: with
+    any other matcher it raises (the JAX package quietly runs the walk
+    there; this one has no quiet route switch)."""
     if params.width % 8 != 0:
         raise ValueError("fused pipeline requires byte-aligned token width")
     if parser not in PARSERS:
@@ -280,6 +289,11 @@ def _resolve_fused_config(
         )
     if parser == "walk" and fused_walk.MERGED_DEFAULT:
         parser = "merged"
+    if parser == "merged" and match_ops.route_matcher(matcher) != "sweep":
+        raise ValueError(
+            "parser 'merged' runs its own sweep (matcher 'sweep'); "
+            f"matcher {matcher!r} runs with parser 'walk' or 'scan'"
+        )
     if block_size is None:
         block_size = min(DEFAULT_BLOCK_SIZE, max(n, 1))
     if sub_block is None:
@@ -298,6 +312,7 @@ def iter_batches_fused(
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
     sub_block: int | None = None,
     parser: str = "walk",
+    matcher: str = match_ops.DEFAULT_MATCHER,
     start_batch: int = 0,
     entry: int = 0,
     phases=None,
@@ -318,20 +333,22 @@ def iter_batches_fused(
     ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel),
     ``"merged"`` (the one merged kernel; it never gives way to the walk) or
     ``"scan"`` (match sweep + the scan parser in plain tensor code).
+    ``matcher`` names the walk's and the scan's match tables' finder
+    (``ops.match.get_matcher``); ``"merged"`` takes only ``"sweep"``.
     """
     from . import codec as codec_model  # lazy: avoid import cycle
 
     dev = device_lib.resolve(device)
     n = x.shape[0]
     block_size, sub_block, parser = _resolve_fused_config(
-        params, n, block_size, sub_block, parser
+        params, n, block_size, sub_block, parser, matcher
     )
     if parser == "merged":
         step = fused_walk.encode_batch_sweepwalk
     else:
         step = functools.partial(
             encode_batch_walk if parser == "walk" else encode_batch_device,
-            sub_block=sub_block,
+            sub_block=sub_block, matcher=matcher,
         )
     nb_bytes = params.width // 8
     B, G = block_size, batch_blocks
@@ -421,13 +438,16 @@ def encode_bytes_fused(
     sub_block: int | None = None,
     stats=None,
     parser: str = "walk",
+    matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ) -> bytes:
     """Compress via the fused device pipeline (byte-aligned widths only).
 
     ``parser``: "walk" (match sweep + walk kernel, the default), "merged"
     (one kernel for match, parse and pack) or "scan" (match sweep + the
-    plain-tensor scan parser); the three give one stream.
+    plain-tensor scan parser); the three give one stream.  ``matcher``:
+    any name of ``ops.match.get_matcher`` for the walk and the scan; the
+    merged kernel runs its own sweep and refuses every other.
     """
     from . import codec as codec_model  # lazy: avoid import cycle
 
@@ -436,7 +456,7 @@ def encode_bytes_fused(
     x = np.frombuffer(data, dtype=np.uint8)
     n = x.shape[0]
     block_size, sub_block, parser = _resolve_fused_config(
-        params, n, block_size, sub_block, parser
+        params, n, block_size, sub_block, parser, matcher
     )
     st = stats if stats is not None else codec_model.EncodeStats()
     st.input_bytes = n
@@ -450,7 +470,8 @@ def encode_bytes_fused(
     with metrics_lib.StopwatchPhase(st.phases, "total"):
         for _, _, _, tok, payload in iter_batches_fused(
             x, params, block_size=block_size, batch_blocks=batch_blocks,
-            sub_block=sub_block, parser=parser, stats=st, device=dev,
+            sub_block=sub_block, parser=parser, matcher=matcher, stats=st,
+            device=dev,
         ):
             total_tokens += tok
             if payload:

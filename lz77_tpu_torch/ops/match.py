@@ -44,9 +44,17 @@ range, and the members' tables meet through :func:`combine_key`'s max.  A
 ranged sweep starts at the word step that holds ``d_lo`` (masked below it
 as step 0 is masked below 1) and stages only the ``d_hi - 1`` window bytes
 it can reach; the full range runs the unranged code that K5 shares.
+
+Beside K1 this module holds three of the JAX package's XLA matchers,
+``find_matches_brute`` (and its ranged form), ``find_matches_sorted`` and
+``find_matches_chunked``, as plain tensor code; the fourth,
+``bitplane``, is ``ops.bitplane``.  :func:`get_matcher` gives any of them
+by name.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -335,18 +343,307 @@ def match_sweep(
 
 match_sweep.launches = 0
 
-# Matchers by name.  ``sweep`` is K1 above and ``chunk`` is K4
-# (``ops.match_chunk``); the JAX package's names for the two TPU kernels they
-# replace are aliases, so a command line written for its CLI runs unchanged.
-# Its other names are XLA formulations with no kernel and are not offered.
+# -------------------------------------------------- the XLA matchers -----
+#
+# The JAX package's four matchers that are no Pallas kernel (``brute``,
+# ``sorted``, ``chunked`` here and ``bitplane`` in ``ops.bitplane``), each
+# written from its JAX counterpart as plain tensor code that runs where its
+# inputs lie.  XLA fuses a loop body into a few device loops where eager
+# PyTorch launches a kernel an operation, so each takes a group of
+# distances (or one k) a pass: the Python loops run at most d_limit / 32
+# times or la - 1 times, never once a distance.  None calls K1, K4 or
+# their plain versions.  Each takes (G, B) batches or one (B,) block.
+
+
+def one_block(fn):
+    """Let a batch matcher take one block: a (B,) block, (H,) halo, (R,)
+    right and scalar avail / valid_ext give (B,) tables."""
+    @functools.wraps(fn)
+    def run(blocks, halos, rights, avails, valid_exts, *args, **kw):
+        if blocks.dim() == 2:
+            return fn(blocks, halos, rights, avails, valid_exts, *args, **kw)
+        L, O = fn(blocks[None], halos[None], rights[None], avails.reshape(1),
+                  valid_exts.reshape(1), *args, **kw)
+        return L[0], O[0]
+
+    return run
+
+
+def zero_tables(blocks):
+    """(L, O) of zeros shaped like ``blocks``: nothing matches."""
+    z = torch.zeros(blocks.shape, dtype=torch.int32, device=blocks.device)
+    return z, z.clone()
+
+
+def reach_of(avails: torch.Tensor, B: int) -> int:
+    """The largest distance any position of the batch can reach, ``B - 1 +
+    max(avail)`` (one host read): the matchers skip the distances beyond
+    it, where no position matches."""
+    return B - 1 + int(avails.max()) if avails.numel() else 0
+
+
+# Elements (distances x bytes) of one pass of the brute sweep.
+BRUTE_PASS_ELEMENTS = 1 << 24
+
+
+def _brute(blocks, halos, rights, avails, valid_exts, la, sb, d_lo, d_hi):
+    G, B = blocks.shape
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    check_batch(blocks, halos, rights, avails, valid_exts, dlim, depth)
+    if dlim == 0 or depth == 0 or G * B == 0:
+        return zero_tables(blocks)
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
+    H = dlim
+    dev = blocks.device
+    pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
+    reach = pos + avails[:, None]
+    buf = torch.cat([halos, blocks, rights], dim=1)  # (G, H + B + depth)
+    # Row i of the shift stack at position p is byte p + i, so the stack's
+    # equality rows at distance d are one equality row E_d[t] = (buf[H + t]
+    # == buf[H + t - d]), t < B + depth - 1, read at offsets 0..depth-1.
+    n = B + depth - 1
+    X = buf[:, H : H + n]
+    win = buf.unfold(1, n, 1)  # win[:, j] = buf[:, j : j + n], distance H - j
+    best_l = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    best_o = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    dmax = min(d_hi - 1, reach_of(avails, B))
+    per = max(1, BRUTE_PASS_ELEMENTS // (G * B))
+    for d0 in range(d_lo, dmax + 1, per):
+        ds = torch.arange(d0, min(d0 + per, dmax + 1), dtype=torch.int32,
+                          device=dev)
+        E = win[:, H - ds] == X[:, None]  # (G, g, n)
+        # the run: the cumulative AND down the stack's equality rows, a row
+        # at a time, summed; once no run is alive the deeper rows add 0
+        alive = E[..., :B].clone()
+        runs = alive.to(torch.uint8)
+        for i in range(1, depth):
+            alive &= E[..., i : i + B]
+            runs += alive
+            if i % 16 == 0 and not bool(alive.any()):
+                break
+        runs = torch.minimum(runs.to(torch.int32), cap[:, None])
+        runs = torch.where(reach[:, None] >= ds[:, None], runs, -1)
+        # the distances in turn, a longer run replacing the best: the
+        # group's longest run at its nearest distance, if it is longer
+        longest = runs.amax(dim=1)
+        nearest = torch.where(runs == longest[:, None], ds[:, None],
+                              dlim + 1).amin(dim=1)
+        upd = longest > best_l
+        best_l = torch.where(upd, longest, best_l)
+        best_o = torch.where(upd, nearest, best_o)
+    return best_l, best_o
+
+
+@one_block
+def find_matches_brute(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distance sweep (JAX ``ops.match.find_matches_brute``).
+
+    For every distance d = 1..d_limit in turn, the run at every position is
+    the cumulative AND of a depth-deep stack of byte-equality rows (the
+    product down the stack, summed), capped at ``min(la, valid_ext - p) -
+    1``, gated by ``d <= p + avail``; a strictly longer run replaces the
+    best, so the smallest distance keeps a tie.  Distances go
+    ``BRUTE_PASS_ELEMENTS / (G B)`` a pass, the stack's rows ANDed in one
+    at a time (a pass whose runs have all ended skips the deeper rows);
+    within a pass the longest run and then its nearest distance win,
+    which is what the one-by-one strict update leaves.
+    """
+    return _brute(blocks, halos, rights, avails, valid_exts, la, sb, 1, None)
+
+
+@one_block
+def find_matches_brute_range(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    d_lo,
+    d_hi,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`find_matches_brute` over the distances ``[d_lo, d_hi)``,
+    clamped as the JAX function clamps them (:func:`distance_range`): the
+    window axis's building block, members combined by
+    :func:`combine_key`'s max."""
+    return _brute(blocks, halos, rights, avails, valid_exts, la, sb,
+                  int(d_lo), int(d_hi))
+
+
+@one_block
+def find_matches_sorted(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest previous equal k-gram for each k (JAX
+    ``ops.match.find_matches_sorted``); its cost does not grow with
+    d_limit.
+
+    For k = 1..depth the positions are sorted stably by their k-gram, so
+    equal grams sit in position order and a position's in-order
+    predecessor with the same gram is its nearest earlier occurrence.  A k
+    is valid where that distance is at most ``min(d_limit, p + avail)`` and
+    k at most the cap; an equal k-gram has an equal (k-1)-gram, so the
+    valid k are 1..L, and O is the distance at k = L.
+
+    JAX sorts ceil(k/4) packed int32 words with a multi-key ``lax.sort``;
+    ``torch.sort`` takes one key.  So the k-grams are ranked incrementally:
+    a k-gram's key is (the dense rank of its (k-1)-gram, its byte k-1) as
+    one int64, ``rank * 256 + byte``, with the block in the 1-grams' rank,
+    so each k is one single-key sort of G (H + B + la - 1) keys and no
+    sort grows with k or d_limit.  Once no position has a valid k, no
+    larger k is valid either, and the loop ends.
+    """
+    G, B = blocks.shape
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    check_batch(blocks, halos, rights, avails, valid_exts, dlim, depth)
+    if dlim == 0 or depth == 0 or G * B == 0:
+        return zero_tables(blocks)
+    H = dlim
+    dev = blocks.device
+    pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
+    limit = torch.clamp(pos + avails[:, None], max=dlim).to(torch.int64)
+    buf = torch.cat([halos, blocks, rights], dim=1)
+    N = buf.shape[1]
+    # the k-gram at t ends at t + k - 1, zero-padded past the buffer
+    nxt = torch.cat([buf, torch.zeros((G, depth), dtype=torch.uint8,
+                                      device=dev)], dim=1).to(torch.int64)
+    rank = nxt[:, :N] + 256 * torch.arange(G, device=dev)[:, None]
+    far = torch.full((G * N,), 1 << 30, dtype=torch.int64, device=dev)
+    L = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    O = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    for k in range(1, depth + 1):
+        key = rank if k == 1 else rank * 256 + nxt[:, k - 1 : k - 1 + N]
+        skey, perm = torch.sort(key.reshape(-1), stable=True)
+        same = skey[1:] == skey[:-1]
+        dist = far.clone()
+        dist[perm[1:]] = torch.where(same, perm[1:] - perm[:-1], 1 << 30)
+        Dk = dist.reshape(G, N)[:, H : H + B]
+        valid = (Dk <= limit) & (cap >= k)
+        if not bool(valid.any()):
+            break
+        L += valid.to(torch.int32)
+        O = torch.where(valid, Dk.to(torch.int32), O)
+        if k < depth:
+            dense = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                               torch.cumsum(~same, 0)])
+            rank = torch.empty_like(dense).scatter_(0, perm, dense).reshape(
+                G, N)
+    return L, O
+
+
+CHUNKED_STEP = 128  # distances a step of the chunked sweep
+
+
+@one_block
+def find_matches_chunked(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distance-chunked sweep (JAX ``ops.match.find_matches_chunked``).
+
+    ``CHUNKED_STEP`` consecutive distances a step as one (G, 128, B + ext)
+    tensor of shifted candidate rows (one gather of the padded buffer's
+    windows), run lengths by doubling along the positions
+    (:func:`capped_runs`, log2(la) shifted adds), and the best kept as the
+    max of the order-preserving key ``L * (d_limit + 2) + d_limit + 1 - d``
+    over the rows.  The halo must be d_limit long, as in JAX.  Steps
+    beyond every position's reach are skipped.
+    """
+    G, B = blocks.shape
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    if dlim == 0 or depth == 0:
+        return zero_tables(blocks)
+    H = halos.shape[1]
+    if H != dlim:
+        raise ValueError(
+            f"chunked matcher requires halo size == d_limit ({dlim}), got {H}"
+        )
+    check_batch(blocks, halos, rights, avails, valid_exts, dlim, depth)
+    if G * B == 0:
+        return zero_tables(blocks)
+    dev = blocks.device
+    chunk = CHUNKED_STEP
+    ext = 1
+    while ext < depth:
+        ext <<= 1
+    pos = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None] - pos - 1, max=depth)
+    reach = pos + avails[:, None]
+    # left pad so no step's rows start before the buffer; right pad for the
+    # doubling's look ahead (real right bytes first, then zeros)
+    buf = torch.cat([torch.zeros((G, chunk), dtype=torch.uint8, device=dev),
+                     halos, blocks, rights,
+                     torch.zeros((G, ext), dtype=torch.uint8, device=dev)],
+                    dim=1)
+    x_ext = buf[:, chunk + H : chunk + H + B + ext]
+    win = buf.unfold(1, B + ext, 1)  # win[:, s] = buf[:, s : s + B + ext]
+    kmul = dlim + 2
+    best = torch.zeros((G, B), dtype=torch.int32, device=dev)
+    rows = torch.arange(1, chunk + 1, dtype=torch.int32, device=dev)
+    n_chunks = min(-(-dlim // chunk), -(-reach_of(avails, B) // chunk))
+    for dc in range(n_chunks):
+        d = dc * chunk + rows                # row r: distance dc*chunk + r + 1
+        S = win[:, chunk + H - d]            # (G, chunk, B + ext)
+        runs = capped_runs(S, x_ext[:, None], depth, cap[:, None])
+        ok = (d[:, None] <= dlim) & (d[:, None] <= reach[:, None]) & (runs > 0)
+        key = torch.where(ok, runs * kmul + (dlim + 1 - d[:, None]), 0)
+        best = torch.maximum(best, key.amax(dim=1))
+    L = torch.div(best, kmul, rounding_mode="floor")
+    O = torch.where(L > 0, (dlim + 1) - torch.remainder(best, kmul), 0)
+    return L, O
+
+
+# ------------------------------------------------------ matchers by name --
+#
+# ``sweep`` is K1 above and ``chunk`` K4 (``ops.match_chunk``); ``brute``,
+# ``sorted``, ``chunked`` and ``bitplane`` (``ops.bitplane``) are the JAX
+# package's XLA matchers as plain tensor code.  The JAX names of the two
+# TPU kernels that K1 and K4 replace are aliases, so a command line
+# written for its CLI runs unchanged.
 DEFAULT_MATCHER = "sweep"
 MATCHER_ALIASES = {"pallas_bitplane": "sweep", "pallas": "chunk"}
-MATCHER_NAMES = ("sweep", "chunk")
+MATCHER_NAMES = ("sweep", "chunk", "brute", "sorted", "chunked", "bitplane")
+# the matchers this module defines; ``chunk`` and ``bitplane`` import theirs
+MATCHERS = {
+    "sweep": match_sweep,
+    "brute": find_matches_brute,
+    "sorted": find_matches_sorted,
+    "chunked": find_matches_chunked,
+}
 
 
 def route_matcher(name: str) -> str:
-    """Canonical matcher name (``sweep`` or ``chunk``) for ``name``; both
-    kernels cover every ``la``, so nothing else routes."""
+    """Canonical matcher name for ``name`` (an alias resolved); every
+    matcher covers every ``la`` and ``sb``, so nothing else routes."""
     name = MATCHER_ALIASES.get(name, name)
     if name not in MATCHER_NAMES:
         raise ValueError(
@@ -357,13 +654,18 @@ def route_matcher(name: str) -> str:
 
 
 def get_matcher(name: str):
-    """The batch wrapper ``fn(blocks, halos, rights, avails, valid_exts, *,
+    """The batch matcher ``fn(blocks, halos, rights, avails, valid_exts, *,
     la, sb) -> (L, O)`` behind a matcher name."""
-    if route_matcher(name) == "chunk":
+    name = route_matcher(name)
+    if name == "chunk":
         from . import match_chunk  # deferred: match_chunk imports this module
 
         return match_chunk.match_chunk
-    return match_sweep
+    if name == "bitplane":
+        from . import bitplane  # deferred: bitplane imports this module
+
+        return bitplane.find_matches_bitplane
+    return MATCHERS[name]
 
 
 def find_matches(
@@ -390,7 +692,7 @@ def find_matches(
         block[0] (includes the right extension; may exceed B).
       la, sb: codec parameters.
       device: where to run; ``None`` is the GPU (see ``device.resolve``).
-      matcher: which kernel, by name (see :func:`get_matcher`).
+      matcher: which matcher, by name (see :func:`get_matcher`).
 
     Returns:
       (L, O): int32, shaped like ``block``.  L[p] in [0, la-1], capped at

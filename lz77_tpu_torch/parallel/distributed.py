@@ -22,14 +22,16 @@ Two range encoders (``pipeline``; ``auto`` is ``fused`` for byte-aligned
 widths and ``host`` otherwise, by the width alone):
 
 * ``host`` (:func:`_encode_range`): the match on the rank's device (K1 for
-  matcher ``sweep``, K4 for ``chunk``) with nibble-packed lengths fetched
+  matcher ``sweep``, K4 for ``chunk``, or any other matcher name of
+  ``ops.match.get_matcher``) with nibble-packed lengths fetched
   and offsets left on the device; la native walks give the map; after the
   allgather the final parse, the offsets gathered at its starts, and the
   tokens kept as int32 words, packed by ``native.pack_tokens_phase`` once
   the rank's bit phase is known.
 * ``fused`` (:func:`_encode_range_fused`): a speculative entry-0 pass
-  through ``models.fused.encode_batch_device(with_map=True)`` (K1 and the
-  scan parser), whose composed (la,) map is exact for any entry; a nonzero
+  through ``models.fused.encode_batch_device(with_map=True)`` (the
+  matcher, K1 by default, and the scan parser), whose composed (la,) map
+  is exact for any entry; a nonzero
   true entry is fixed by a head-window splice where the two parses meet,
   and by an exact re-run of the range where they never do.
 
@@ -45,8 +47,9 @@ so by decision:
   the run.
 * Each rank runs on its own device: ``device=None`` is ``cuda:{rank %
   device_count}`` (raises without a card), anything else is used as given.
-* The default matcher is ``sweep`` (the port refuses the XLA ``chunked``),
-  and ``fused`` runs K1 only: matcher ``chunk`` on it raises.
+* The default matcher is ``sweep`` (K1), where the JAX module's is its
+  XLA ``chunked``; both routes take every matcher name, ``chunked``
+  included.
 * A width that is not a byte multiple keeps token words (4 B a token), not
   one byte a bit.
 * The solo fast path is ``codec.encode_bytes`` with only what the chosen
@@ -58,7 +61,7 @@ Run ranks by hand (each process calls :func:`initialize`) or through
 
     python -m lz77_tpu_torch.parallel.distributed -i IN -o OUT.lz --nproc 2
         [-l 15] [-s 4095] [--mode file|bytes] [--pipeline auto|host|fused]
-        [--matcher sweep|chunk] [--device cuda|cpu]
+        [--matcher NAME] [--device cuda|cpu]
 
 It prints one JSON line per rank and one for the run.
 """
@@ -389,11 +392,6 @@ def _encode_range_fused(x, n, params, *, block_size, batch_blocks, matcher,
     lz77host.cpp:269-528); where they never meet, the range is re-run from
     the true entry, exactly.
     """
-    if match_ops.route_matcher(matcher) != "sweep":
-        raise ValueError(
-            "pipeline 'fused' has one matcher, 'sweep'; "
-            f"use pipeline='host' for matcher {matcher!r}"
-        )
     la = params.la
     nb_bytes = params.width // 8
     B = block_size
@@ -420,7 +418,7 @@ def _encode_range_fused(x, n, params, *, block_size, batch_blocks, matcher,
             fused_model.encode_batch_device(
                 *arrs, min(gn_stage * B, span_end - g0 * B), entry_dev,
                 la=la, sb=params.sb, with_map=True, head_w=RESYNC_WINDOW,
-                device=device,
+                matcher=matcher, device=device,
             ))
         return g0, payload, counts_b, total, bmap, lh, oh, exit_e
 

@@ -7,10 +7,11 @@ streams byte-identical to the serial host parse, for any mesh.
   mesh, for ``models.codec.encode_bytes(match_fn=...)`` (the host-parse
   pipeline: the parse stays on the host, so its stream is unchanged).  The
   batch's rows go to the ``data`` axis in contiguous shards; with a ``win``
-  axis each member of a shard searches one range of distances with the
-  match sweep (K1 with ``d_lo``/``d_hi``), and the members' tables meet on
-  the shard's first member through a max over ``match.combine_key`` (the
-  JAX package's ``lax.pmax``).
+  axis each member of a shard searches one range of distances (K1 with
+  ``d_lo``/``d_hi`` for ``sweep``, or the ranged form that the JAX
+  package's ``_win_match`` picks for its matchers), and the members'
+  tables meet on the shard's first member through a max over
+  ``match.combine_key`` (the JAX package's ``lax.pmax``).
 * :func:`make_sharded_walk_step` / :func:`iter_batches_sharded` /
   :func:`encode_bytes_sharded` — the device-resident pipeline: per shard
   the match, ``build_lox`` and the walk parse+pack (K2), the shards' walks
@@ -83,6 +84,37 @@ def _matcher_for(matcher: str, n_win: int) -> str:
     return name
 
 
+def _win_match(matcher: str, params: spec.Params, n_win: int):
+    """(ranges, fn) of the window axis for a canonical matcher name, the
+    ranged form the JAX package's ``_win_match`` picks: ``sweep`` is K1
+    over its range; ``bitplane`` is ``find_matches_bitplane_range`` with
+    the member span rounded up to 32, so that every member starts at
+    1 (mod 32); ``brute``, ``sorted`` and ``chunked`` run
+    ``find_matches_brute_range``.  ``fn(*inputs, d_lo, d_hi)`` -> (L, O)."""
+    la, sb, dlim = params.la, params.sb, params.d_limit
+    if matcher == "sweep":
+        def fn(*inputs, d_lo, d_hi):
+            return match_ops.match_sweep(*inputs, la=la, sb=sb, d_lo=d_lo,
+                                         d_hi=d_hi)
+        return _win_ranges(dlim, n_win), fn
+    if matcher == "bitplane":
+        from ..ops import bitplane
+
+        span = -(-_cdiv(max(dlim, 1), n_win) // 32) * 32
+        ranges = [(1 + w * span, min(dlim + 1, 1 + (w + 1) * span))
+                  for w in range(n_win)]
+
+        def fn(*inputs, d_lo, d_hi):
+            return bitplane.find_matches_bitplane_range(
+                *inputs, d_lo, d_hi, la=la, sb=sb, span=span)
+        return ranges, fn
+
+    def fn(*inputs, d_lo, d_hi):
+        return match_ops.find_matches_brute_range(*inputs, d_lo, d_hi, la=la,
+                                                  sb=sb)
+    return _win_ranges(dlim, n_win), fn
+
+
 def check_batch_blocks(G: int, n_data: int) -> None:
     """A batch of ``G`` blocks must split evenly over the ``data`` axis."""
     if G % n_data:
@@ -108,7 +140,10 @@ def _match_shards(mesh, params: spec.Params, matcher: str, arrays,
     n_data = mesh.shape[mesh_lib.DATA_AXIS]
     n_win = mesh.shape[mesh_lib.WIN_AXIS]
     find = match_ops.get_matcher(matcher)
-    ranges = _win_ranges(params.d_limit, n_win)
+    if n_win == 1:
+        ranges = _win_ranges(params.d_limit, 1)
+    else:
+        ranges, ranged = _win_match(matcher, params, n_win)
     rows = arrays[0].shape[0]
     shards = []
     for d in range(n_data):
@@ -131,9 +166,7 @@ def _match_shards(mesh, params: spec.Params, matcher: str, arrays,
             if n_win == 1:
                 parts.append(find(*on[dev], la=params.la, sb=params.sb))
             else:
-                parts.append(match_ops.match_sweep(
-                    *on[dev], la=params.la, sb=params.sb, d_lo=d_lo,
-                    d_hi=d_hi))
+                parts.append(ranged(*on[dev], d_lo=d_lo, d_hi=d_hi))
         shards.append((r0, on[mesh.devices[d, 0]], parts))
     return shards
 
@@ -156,8 +189,9 @@ def sharded_match_fn(mesh, params: spec.Params, *, matcher: str = "sweep"):
     member sweeps one range of distances and the tables are combined.  The
     int32 (G, B) tables come back on the mesh's first device.
     ``match_fn.data_shards`` is ``n_data``: the host pipeline needs
-    ``batch_blocks`` to be a multiple of it.  ``matcher`` is ``sweep`` (K1)
-    or, on a mesh without a ``win`` axis, ``chunk`` (K4).
+    ``batch_blocks`` to be a multiple of it.  ``matcher``: any name of
+    ``ops.match.get_matcher``, but ``chunk`` (K4) only on a mesh without a
+    ``win`` axis.
     """
     n_data = mesh.shape[mesh_lib.DATA_AXIS]
     matcher = _matcher_for(matcher, mesh.shape[mesh_lib.WIN_AXIS])

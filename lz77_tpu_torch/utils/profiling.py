@@ -1,5 +1,6 @@
-"""Profiling hook (torch.profiler) — SURVEY.md §5 'tracing/profiling: none'
-in the reference; ``--profile DIR`` on the CLI captures a real trace.
+"""Profiling hooks (torch.profiler) — SURVEY.md §5 'tracing/profiling: none'
+in the reference; ``--profile DIR`` on the CLI captures a real trace, and
+:func:`annotate` names a region in it.
 """
 
 from __future__ import annotations
@@ -66,3 +67,14 @@ def trace(log_dir: str | None):
     ]
     with open(os.path.join(log_dir, "key_averages.json"), "w") as f:
         json.dump({"wall_us": wall_us, "rows": rows}, f)
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region in the profiler's timeline
+    (``torch.profiler.record_function``); costs next to nothing when no
+    profiler runs.  Unlike the JAX package's, it lets any error through."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield

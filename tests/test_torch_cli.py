@@ -323,11 +323,21 @@ def test_matcher_names_and_jax_aliases(scratch, capsys, name):
 
 @pytest.mark.parametrize("name", ["chunked", "brute", "sorted", "bitplane"])
 def test_xla_matcher_names_exit_1(scratch, capsys, name):
+    """The name dates from when the port refused the JAX package's XLA
+    matchers; they run now, as plain tensor code: rc 0, the native stream,
+    and the report names the matcher that ran."""
     rc, _, err = run(cli.main, ["-c", "-i", scratch["in"], "-o",
-                                scratch["out"], "--matcher", name] + CPU,
+                                scratch["out"], "--matcher", name,
+                                "--report"] + CPU, capsys)
+    assert rc == 0
+    assert _report(err)["matcher"] == name
+    with open(scratch["in"], "rb") as f, open(scratch["out"], "rb") as g:
+        assert g.read() == native.encode(f.read())
+    rc, _, err = run(cli.main, ["-c", "-i", scratch["in"], "-o",
+                                scratch["out"], "--matcher", "nope"] + CPU,
                      capsys)
     assert rc == 1
-    assert err.startswith("Encode error: unknown matcher") and "sweep" in err
+    assert err.startswith("Encode error: unknown matcher") and name in err
 
 
 @pytest.mark.parametrize(

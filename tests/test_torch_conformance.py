@@ -205,13 +205,33 @@ def test_big_streamed_default_matcher_is_sweep(tmp_path, monkeypatch):
     assert sig.parameters["device"].default is None
     monkeypatch.setattr(corpus, "get_corpus",
                         lambda scale=1: {"a": b"abcab" * 200})
-    with pytest.raises(ValueError, match="chunked"):
-        conformance.run_big_streamed(1e-6, str(tmp_path), matcher="chunked",
-                                     device="cpu")
+    # the JAX runner's default matcher runs too
+    res = conformance.run_big_streamed(1e-6, str(tmp_path), matcher="chunked",
+                                       device="cpu")
+    assert res["verified"] and res["input_bytes"] == 1073
     res = conformance.run_big_streamed(1e-6, str(tmp_path),
                                        pipeline="sharded", device="cpu")
     assert res["verified"] and res["pipeline"] == "sharded"
     assert res["input_bytes"] == 1073
+
+
+@pytest.mark.parametrize("backend,matcher", [("device", "chunked"),
+                                             ("fused", "sorted")])
+def test_run_conformance_takes_every_matcher(corpora, monkeypatch, backend,
+                                             matcher):
+    monkeypatch.setattr(corpus, "get_corpus", _capped(corpora[1], 300))
+    streams = {}
+    rows = conformance.run_conformance(1, backend, device="cpu",
+                                       streams=streams, matcher=matcher)
+    assert rows and all(r["roundtrip"] for r in rows)
+    data = corpus.get_corpus(1)
+    for name, s in streams.items():
+        assert s == jax_native.encode(data[name], jax_spec.Params()), name
+    with pytest.raises(ValueError, match="unknown matcher"):
+        conformance.run_conformance(1, backend, device="cpu", matcher="nope")
+    with pytest.raises(ValueError, match="native' takes no matcher"):
+        conformance.run_conformance(1, "native", device="cpu",
+                                    matcher=matcher)
 
 
 def test_big_pipeline_sharded_exits_1(capsys, monkeypatch):

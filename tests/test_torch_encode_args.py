@@ -1,10 +1,11 @@
 """``encode_bytes`` / ``compress`` refuse what the chosen pipeline does not
 run, as the JAX package does, where they used to drop it.
 
-The fused pipeline (``compress``'s default) runs one matcher, the sweep:
-any other name raises ``ValueError`` (an unknown or XLA-only one with
-``route_matcher``'s text, which the JAX package's ``compress`` also
-raises for an unknown name; ``chunk`` with ``encode_file``'s).  An argument
+The fused pipeline (``compress``'s default) takes every matcher name, as
+the JAX package's does; an unknown one raises ``ValueError`` with
+``route_matcher``'s text, which the JAX package's ``compress`` also raises,
+and the merged parser, which runs its own sweep, refuses every other
+matcher (the JAX package quietly runs the walk there).  An argument
 that only the other pipeline takes raises ``TypeError``, as the JAX
 package's ``encode_bytes`` does for ``sub_block``.  On the CPU, so the
 kernels' plain versions.
@@ -17,7 +18,7 @@ import lz77_tpu
 import lz77_tpu_torch as lt
 from lz77_tpu import spec
 from lz77_tpu_torch.utils import faults
-from lz77_tpu_torch.models import codec
+from lz77_tpu_torch.models import codec, fused
 
 torch.set_num_threads(1)
 
@@ -26,17 +27,31 @@ DATA = b"abcabcabd" * 40 + b"\x00" * 300 + b"the cat sat on the mat " * 9
 
 @pytest.mark.parametrize("matcher,text", [
     ("bogus", "unknown matcher"),
-    ("brute", "unknown matcher"),        # an XLA matcher of the JAX package
-    ("chunk", "has one matcher, 'sweep'"),
-    ("pallas", "has one matcher, 'sweep'"),  # alias of chunk
+    ("brute", None),             # an XLA matcher of the JAX package
+    ("chunk", None),
+    ("pallas", None),            # alias of chunk
+    ("brute-merged", "parser 'merged' runs its own sweep"),
 ])
 def test_fused_refuses_other_matchers(matcher, text):
+    """The name dates from when the fused pipeline ran the sweep alone: an
+    unknown name is still refused, every other name runs and gives the JAX
+    package's stream, and the merged parser refuses all but its sweep."""
+    matcher, _, parser = matcher.partition("-")
+    kw = {"parser": parser} if parser else {}
+    if text is None:
+        want = lz77_tpu.compress(DATA, backend="numpy")
+        assert lt.compress(DATA, device="cpu", matcher=matcher) == want
+        assert codec.encode_bytes(DATA, pipeline="fused", matcher=matcher,
+                                  device="cpu") == want
+        return
     with pytest.raises(ValueError, match=text):
-        lt.compress(DATA, device="cpu", matcher=matcher)
-    with pytest.raises(ValueError, match=text):
-        codec.encode_bytes(DATA, pipeline="fused", matcher=matcher,
-                           device="cpu")
-    if matcher == "bogus":
+        fused.encode_bytes_fused(DATA, matcher=matcher, device="cpu", **kw)
+    if not parser:
+        with pytest.raises(ValueError, match=text):
+            lt.compress(DATA, device="cpu", matcher=matcher)
+        with pytest.raises(ValueError, match=text):
+            codec.encode_bytes(DATA, pipeline="fused", matcher=matcher,
+                               device="cpu")
         with pytest.raises(ValueError, match="unknown matcher"):
             lz77_tpu.compress(DATA, backend="jax", matcher="bogus")
 

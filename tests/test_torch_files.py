@@ -199,8 +199,14 @@ def test_encode_file_rejections(tmp_path, payload):
         assert f.read() == jax_codec.encode_bytes(payload[:1000], P)
     with pytest.raises(ValueError, match="unknown pipeline"):
         codec.encode_file(ip, op, P, pipeline="nope", device="cpu")
-    with pytest.raises(ValueError, match="one matcher"):
-        codec.encode_file(ip, op, P, pipeline="fused", matcher="chunk",
+    # the fused pipeline takes every matcher name (it refused all but the
+    # sweep before the JAX package's XLA matchers were ported)
+    codec.encode_file(ip, op, P, pipeline="fused", matcher="chunk",
+                      device="cpu")
+    with open(op, "rb") as f:
+        assert f.read() == jax_codec.encode_bytes(payload[:1000], P)
+    with pytest.raises(ValueError, match="unknown matcher"):
+        codec.encode_file(ip, op, P, pipeline="fused", matcher="nope",
                           device="cpu")
 
 

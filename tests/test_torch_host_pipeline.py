@@ -225,6 +225,13 @@ def test_host_pipeline_rejects_bad_geometry_and_names(payload):
         list(codec.iter_block_bits(x, p, block_size=1024, batch_blocks=4,
                                    start_block=2, device="cpu"))
     with pytest.raises(ValueError, match="unknown matcher"):
-        list(codec.iter_block_bits(x, p, matcher="chunked", device="cpu"))
+        list(codec.iter_block_bits(x, p, matcher="nope", device="cpu"))
+    # the JAX package's default matcher name runs here too
+    got = list(codec.iter_block_bits(x, p, block_size=1024, matcher="chunked",
+                                     device="cpu"))
+    want = list(codec.iter_block_bits(x, p, block_size=1024, device="cpu"))
+    assert len(got) == len(want) and all(
+        g[:4] == w[:4] and np.array_equal(g[4], w[4])
+        for g, w in zip(got, want))
     with pytest.raises(ValueError, match="unknown pipeline"):
         codec.encode_bytes(b"abc", p, pipeline="sharded", device="cpu")

@@ -189,7 +189,16 @@ def test_matcher_names_and_aliases(name, want):
 @pytest.mark.parametrize("name", ["brute", "sorted", "chunked", "bitplane",
                                   "nope"])
 def test_xla_matcher_names_are_refused(name):
-    """The JAX package's XLA formulations have no kernel here; the error
-    names what the port has."""
-    with pytest.raises(ValueError, match="chunk.*sweep"):
-        torch_match.get_matcher(name)
+    """The name dates from when the port refused the JAX package's XLA
+    matchers: each name now gives its tensor-code function (no kernel, so
+    neither K1's nor K4's wrapper), and an unknown name is still refused
+    with every name the port has."""
+    if name == "nope":
+        with pytest.raises(ValueError, match="bitplane.*brute.*chunk.*"
+                                             "chunked.*sorted.*sweep"):
+            torch_match.get_matcher(name)
+        return
+    fn = torch_match.get_matcher(name)
+    assert fn.__name__ == f"find_matches_{name}"
+    assert torch_match.route_matcher(name) == name
+    assert fn not in (torch_match.match_sweep, match_chunk.match_chunk)

@@ -213,32 +213,45 @@ def test_range_encoder_errors_are_the_jax_texts():
 
 
 def test_chunk_is_refused_on_the_fused_route(payload_data, tmp_path):
-    """The fused route runs K1 only (``encode_batch_device``): matcher
-    ``chunk`` raises there, and ``auto`` picks the route by width alone."""
+    """The name dates from when the fused route ran K1 only: matcher
+    ``chunk`` runs there now (``encode_batch_device`` takes any matcher),
+    alone and in the distributed code, bytes and files, and ``auto`` picks
+    the route by width alone."""
     p = spec.Params(15, 4095)
+    data = payload_data[:3000]
+    want = jax_single(data, 15, 4095, 1024, 2)
     for pipeline in ("fused", "auto"):
         for force in (False, True):
-            with pytest.raises(ValueError, match="one matcher, 'sweep'"):
-                distributed.encode_bytes_multihost(
-                    payload_data[:3000], p, matcher="chunk", force=force,
-                    pipeline=pipeline, device="cpu")
+            assert distributed.encode_bytes_multihost(
+                data, p, matcher="chunk", force=force, pipeline=pipeline,
+                block_size=1024, device="cpu") == want
     src = tmp_path / "in"
-    src.write_bytes(payload_data[:3000])
-    with pytest.raises(ValueError, match="one matcher, 'sweep'"):
-        distributed.encode_file_multihost(str(src), str(tmp_path / "o"), p,
-                                          matcher="chunk", device="cpu")
+    src.write_bytes(data)
+    distributed.encode_file_multihost(str(src), str(tmp_path / "o"), p,
+                                      matcher="chunk", block_size=1024,
+                                      device="cpu")
+    assert (tmp_path / "o").read_bytes() == want
     # the host route takes it
     got = distributed.encode_bytes_multihost(
-        payload_data[:3000], p, matcher="chunk", pipeline="host",
+        data, p, matcher="chunk", pipeline="host",
         force=True, block_size=1024, device="cpu")
-    assert got == jax_single(payload_data[:3000], 15, 4095, 1024, 2)
+    assert got == want
 
 
 def test_xla_matcher_names_are_refused(payload_data):
+    """The name dates from when the port refused the JAX package's XLA
+    matchers: they run on both routes now (the JAX module's default,
+    ``chunked``, among them); an unknown name is refused."""
+    data = payload_data[:1500]
+    want = jax_single(data, 15, 4095, 512, 2)
     for name in ("chunked", "bitplane", "brute", "sorted"):
-        with pytest.raises(ValueError, match="unknown matcher"):
-            distributed.encode_bytes_multihost(
-                payload_data[:100], matcher=name, device="cpu")
+        for pipeline in ("fused", "host"):
+            assert distributed.encode_bytes_multihost(
+                data, matcher=name, pipeline=pipeline, force=True,
+                block_size=512, device="cpu") == want, (name, pipeline)
+    with pytest.raises(ValueError, match="unknown matcher"):
+        distributed.encode_bytes_multihost(data, matcher="nope",
+                                           device="cpu")
 
 
 @pytest.mark.parametrize("la,sb", [(15, 300), (15, 15)])

@@ -133,6 +133,23 @@ def test_default_device_raises_without_a_card():
         lambda: sharded.make_sharded_pipeline_step(
             mesh_lib.make_mesh(4, 2, devices=["cuda"] * 8),
             lz77_tpu_torch.Params()),
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, matcher="brute"),
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, matcher="sorted"),
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, matcher="chunked"),
+        lambda: match.find_matches(
+            np.zeros(8, np.uint8), np.zeros(100, np.uint8),
+            np.zeros(14, np.uint8), 0, 8, la=15, sb=100, matcher="bitplane"),
+        lambda: codec.encode_bytes(b"abc", pipeline="host", matcher="brute"),
+        lambda: fused.encode_bytes_fused(b"abc", matcher="sorted"),
+        lambda: codec.encode_bytes(b"abc", matcher="chunked"),
+        lambda: sharded.encode_bytes_sharded(b"abc", matcher="bitplane"),
+        lambda: distributed.encode_bytes_multihost(b"abc", matcher="chunked"),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
@@ -143,7 +160,11 @@ def test_default_device_raises_without_a_card():
          "make_mesh", "encode_bytes_sharded", "encode_bytes_sharded_cuda",
          "sharded_match_fn", "encode_file_sharded", "encode_bytes_multihost",
          "encode_bytes_multihost_forced", "encode_file_multihost",
-         "encode_bytes_multihost_cuda", "make_sharded_pipeline_step"],
+         "encode_bytes_multihost_cuda", "make_sharded_pipeline_step",
+         "find_matches_brute", "find_matches_sorted", "find_matches_chunked",
+         "find_matches_bitplane", "encode_bytes_host_brute",
+         "encode_bytes_fused_sorted", "encode_bytes_chunked",
+         "encode_bytes_sharded_bitplane", "encode_bytes_multihost_chunked"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()

@@ -465,12 +465,18 @@ def test_chunk_matcher_runs_only_without_a_win_axis(payload):
     with pytest.raises(ValueError, match="sweep"):
         sharded.encode_bytes_sharded(payload, p, mesh=cpu_mesh(4, 2),
                                      matcher="chunk")
-    for name in ("brute", "sorted", "chunked", "bitplane"):
-        with pytest.raises(ValueError, match="unknown matcher"):
-            sharded.sharded_match_fn(cpu_mesh(8, 1), p, matcher=name)
+    with pytest.raises(ValueError, match="unknown matcher"):
+        sharded.sharded_match_fn(cpu_mesh(8, 1), p, matcher="nope")
     got = sharded.encode_bytes_sharded(payload, p, mesh=cpu_mesh(8, 1),
                                        matcher="chunk", block_size=600)
     assert got == native.encode(payload, p)
+    # the JAX package's XLA matchers run on both axes (on the win axis as
+    # their ranged forms)
+    for name in ("brute", "sorted", "chunked", "bitplane"):
+        for shape in ((8, 1), (2, 2)):
+            assert sharded.encode_bytes_sharded(
+                payload, p, mesh=cpu_mesh(*shape), matcher=name,
+                block_size=600) == native.encode(payload, p), (name, shape)
 
 
 def test_the_pipeline_step_is_not_ported_and_encode_bytes_has_no_sharded():
