@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``lz77_tpu_torch/csrc`` (first use), holds
 every kernel against its plain PyTorch version on the card with tolerance 0
 (all outputs are integers and bytes) at small shapes and at the main path's
-shape, times both, and then drives nine paths, each once, with the kernels'
+shape, times both, and then drives ten paths, each once, with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the library path: ``compress`` and ``decompress`` of word-salad text plus
@@ -43,6 +43,19 @@ launch counts set to 0 just before and read just after:
   ``--pipeline sharded`` (default mesh, ``--device cuda --host-devices 8
   --mesh 4x2``, ``-l 8 -s 500`` on 8 MiB); the host pipeline with the 4x2
   mesh's ``sharded_match_fn`` on 8 MiB;
+* the exact entry-carried sharded step (``make_sharded_exact_step``):
+  first its five outputs against the same step on a CPU mesh (the plain
+  versions) on two 256 KiB blocks from entries 0, 7 and la + 3; then, counts
+  zeroed, the same input in 1 MiB blocks and batches of 8 on 1x1, 8x1 and
+  4x2 meshes on the card, chained batch to batch through the exit tensor,
+  each batch's padded rows packed into a stream equal to the native
+  encoder's (the 1x1 one decoded by ``decompress``), and on 8 MiB of text
+  ``Params(255, 65535)`` and ``Params(8, 500)`` on 4x2 and the chunk
+  matcher on 8x1 (K1 once a member of a shard a batch, K2 once a shard, K4
+  only for ``chunk``, K3 only for the decode, K5 and K6 never).  Its
+  ``exact_step`` line gives each mesh's median ms a batch of the step and
+  of its unpack into padded rows, MB/s with the host pack beside
+  ``encode_bytes_sharded``'s, the peak device memory and ``phase_s``;
 * the multi-process path (``parallel.distributed``): local ranks of
   ``python -m lz77_tpu_torch.parallel.distributed`` on a Gloo group at
   localhost, every rank on cuda:0 (NCCL refuses two ranks on one card):
@@ -132,7 +145,8 @@ zeros, of random bytes and of text at sb=65535, at tiles of 2048 to 14336
 words (``ms_by_tile_words``), with its scratch and its kernel launches a
 call (``kernels_per_call``, from ``torch.profiler``).  The walk parse+pack
 is held and timed at la 2, 15 and 255 with sub-blocks of one byte, the
-default and 65,535.
+default and 65,535, and its sub-blocks' entries and offsets (the exact
+step's) held at the main shape.
 
 The packed-word decode is also held against the walk decode's bytes and the
 input on streams several of its tiles long (tokens across tile boundaries,
@@ -251,6 +265,15 @@ PROBE_PATH_KERNELS = ("coissue_v_kernel", "coissue_s_kernel",
                       "coissue_f_kernel", "coissue_q_kernel")
 SHARDED_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                         "walk_decode_kernel")
+EXACT_STEP_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
+                           "walk_decode_kernel", "match_chunk_kernel")
+# the exact step's runs on the first 8 MiB of text: (name, (data, win),
+# (la, sb), matcher)
+EXACT_STEP_OTHERS = (
+    ("la255_sb65535_4x2", (4, 2), (255, 65535), "sweep"),
+    ("l8_s500_4x2", (4, 2), (8, 500), "sweep"),
+    ("chunk_8x1", (8, 1), (15, 4095), "chunk"),
+)
 # (data, win) shapes of the sharded path's meshes, every member on cuda:0
 SHARDED_MESHES = ((1, 1), (8, 1), (4, 2))
 # GiB the two big-run drivers encode (multihost_bigrun, bigrun_r5)
@@ -494,22 +517,33 @@ def time_ranged(x, g0, args, B, p, rec1) -> list:
 
 # ---------------------------------------------------------------- K2 -----
 
-def check_walk(name, args, L, O, vt, entry, p, sub_block, reps=0):
+def check_walk(name, args, L, O, vt, entry, p, sub_block, reps=0,
+               sub_blocks=False):
+    """K2 against its plain version; ``sub_blocks``: the sub-blocks'
+    ``entries`` and ``offsets`` too, against the plain version's
+    ``sub_block`` form (the exact sharded step's return)."""
     blocks, _, rights = args[:3]
     N = blocks.numel()
     lox = parse_walk.build_lox(
         L.reshape(N), O.reshape(N), blocks.reshape(N), rights[-1], p.la)
     e = torch.tensor([entry], dtype=torch.int32, device="cuda")
     kw = dict(la=p.la, ob=p.off_bits, lb=p.len_bits)
-    tok, cnt, ex = parse_walk.walk_parse_pack(lox, e, vt, sub_block=sub_block, **kw)
-    tokp, cntp, exp = parse_walk.walk_parse_pack_plain(lox, e, vt, **kw)
+    got = parse_walk.walk_parse_pack(lox, e, vt, sub_block=sub_block,
+                                     sub_blocks=sub_blocks, **kw)
+    want = parse_walk.walk_parse_pack_plain(
+        lox, e, vt, sub_block=sub_block if sub_blocks else None,
+        sub_blocks=sub_blocks, **kw)
     torch.cuda.synchronize()
+    (tok, cnt, ex), (tokp, cntp, exp) = got[:3], want[:3]
     c = int(cnt)
-    err = max(max_err(cnt, cntp), max_err(ex, exp), max_err(tok[:c], tokp[:c]))
+    err = max(max_err(cnt, cntp), max_err(ex, exp), max_err(tok[:c], tokp[:c]),
+              *(max_err(g, w) for g, w in zip(got[3:], want[3:])))
     rec = {"kernel": "walk_parse_pack_kernel", "case": name, "la": p.la,
            "sb": p.sb, "span": N, "valid_total": vt, "entry": entry,
            "sub_block": sub_block, "tokens": c, "exit": int(ex),
            "max_abs_err": err}
+    if sub_blocks:
+        rec["sub_blocks_held"] = int(got[3].numel())
     if err != 0:
         raise AssertionError(f"walk_parse_pack_kernel disagrees: {rec}")
     if reps:
@@ -1374,6 +1408,181 @@ def drive_sharded_path(data: bytes, ref_stream: bytes, tmp: str):
                             "encode_s": host_s, "stream_equals_native": True}
     rec["launches"] = total
     return rec, total
+
+
+def exact_rows_stream(step, x: np.ndarray, p: spec.Params, B: int, G: int,
+                      unpack_ms: list | None = None):
+    """``make_sharded_exact_step`` over every batch of ``x`` from entry 0,
+    the exit carried as the device tensor, each batch's rows packed into
+    the stream: the token bytes where the width is a byte multiple, else
+    ``native.pack_tokens_phase`` with a carried bit phase.  Returns (stream,
+    step seconds a batch (device-synchronised), tokens).  With
+    ``unpack_ms``, the device ms of each batch's unpacks into padded rows
+    (CUDA events around ``sharded._unpack_rows``) are appended to it."""
+    n = x.shape[0]
+    nblocks = -(-n // B)
+    ob, lb, nb = p.off_bits, p.len_bits, p.width // 8
+    out = bytearray(bitio.header_bytes(p))
+    bitpos = spec.HEADER_BITS
+    entry, step_s, tokens = 0, [], 0
+    unpack = sharded._unpack_rows
+
+    def timed_unpack(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = unpack(*a)
+        ev[1].record()
+        events.append(ev)
+        return got
+
+    if unpack_ms is not None:
+        sharded._unpack_rows = timed_unpack
+    try:
+        for g0 in range(0, nblocks, G):
+            gn = min(G, nblocks - g0)
+            arrs = codec._batch_inputs(x, n, g0, gn, G, B, p.d_limit,
+                                       p.len_limit)
+            events = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            off, ln, nxt, counts, entry = step(*arrs, entry)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if unpack_ms is not None:
+                unpack_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            live = torch.arange(B, device=counts.device) < counts[:, None]
+            if p.width % 8 == 0:
+                w = (off.to(torch.int64) | (ln.to(torch.int64) << ob)
+                     | (nxt.to(torch.int64) << (ob + lb)))[live]
+                out += w.view(torch.uint8).reshape(-1, 8)[:, :nb].cpu() \
+                    .numpy().tobytes()
+            else:
+                o, l_, nx = (t[live].cpu().numpy() for t in (off, ln, nxt))
+                if o.shape[0]:
+                    buf, bits = native.pack_tokens_phase(o, l_, nx, p,
+                                                         bitpos % 8)
+                    if bitpos % 8:
+                        out[-1] |= int(buf[0])
+                        out += buf[1:].tobytes()
+                    else:
+                        out += buf.tobytes()
+                    bitpos += bits
+            tokens += int(live.sum())
+            del off, ln, nxt, counts, live
+    finally:
+        sharded._unpack_rows = unpack
+    return bytes(out), step_s, tokens
+
+
+def check_exact_step() -> list:
+    """The exact step on the card against the same step on a CPU mesh (the
+    plain versions), all five outputs at error 0: one batch of two 256 KiB
+    blocks of text at la 15, sb 255 (the plain K1 on the CPU makes one pass
+    a few distances), on 2x1 from entries 0, 7 and la + 3 and on 1x2 (K1
+    over two distance ranges) from entry 7."""
+    rng = np.random.default_rng(5)
+    p = spec.Params(15, 255)
+    B = 256 << 10
+    x = make_text(rng, 2 * B + 3000)
+    arrs = codec._batch_inputs(x, x.shape[0], 0, 2, 2, B, p.d_limit,
+                               p.len_limit)
+    recs = []
+    for (nd, nw), entry in (((2, 1), 0), ((2, 1), 7), ((2, 1), p.la + 3),
+                            ((1, 2), 7)):
+        got = sharded.make_sharded_exact_step(card_mesh(nd, nw), p)(
+            *arrs, entry)
+        want = sharded.make_sharded_exact_step(
+            mesh_lib.make_mesh(nd, nw, devices=["cpu"] * (nd * nw)), p)(
+            *arrs, entry)
+        torch.cuda.synchronize()
+        err = max(max_err(g.cpu(), w) for g, w in zip(got, want))
+        rec = {"case": f"{nd}x{nw}_entry{entry}", "la": p.la, "sb": p.sb,
+               "blocks": 2, "block_size": B, "entry0": entry,
+               "counts": got[3].tolist(), "exit": int(got[4]),
+               "max_abs_err": err}
+        if err != 0 or any(g.device.type != "cuda" for g in got):
+            raise AssertionError(f"exact step disagrees with the CPU's: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def drive_exact_step_path(data: bytes, ref_stream: bytes, sh_rec: dict):
+    """``make_sharded_exact_step``: first held against the same step on a
+    CPU mesh (uncounted); then, counts zeroed, the 40 MiB at the defaults
+    in 1 MiB blocks and batches of 8 on 1x1, 8x1 and 4x2 meshes on the
+    card, each stream equal to ``native.encode``'s (the 1x1 one decoded by
+    ``decompress``), and on the 8 MiB of text `Params(255, 65535)` on 4x2,
+    `Params(8, 500)` (20-bit tokens) on 4x2 and ``matcher="chunk"`` on 8x1.
+    Asserts the launches: K1 once a member of a shard a batch, K2 once a
+    shard with valid bytes, K4 only for ``chunk``, K3 only for the decode,
+    K5 and K6 never.  Returns (record, launches)."""
+    t_phase = time.perf_counter()
+    checks = check_exact_step()
+    p0 = spec.Params()
+    B, G = codec.DEFAULT_BLOCK_SIZE, 8
+    x = np.frombuffer(data, np.uint8)
+    nblocks = -(-x.shape[0] // B)
+    batches = -(-nblocks // G)
+    small = x[: 8 << 20]
+    rec = {"input_bytes": len(data), "la": p0.la, "sb": p0.sb,
+           "block_size": B, "batch_blocks": G,
+           "sub_block": sharded.exact_sub_block(B), "checks": checks,
+           "meshes": {}, "others": {}}
+    want = {k: 0 for k in WRAPPERS}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for nd, nw in SHARDED_MESHES:
+        unpack_ms = []
+        t0 = time.perf_counter()
+        s, step_s, tokens = exact_rows_stream(
+            sharded.make_sharded_exact_step(card_mesh(nd, nw), p0), x, p0,
+            B, G, unpack_ms)
+        dt = time.perf_counter() - t0
+        if s != ref_stream:
+            raise AssertionError(f"exact step {nd}x{nw} stream differs")
+        want["match_kernel"] += batches * nd * nw
+        want["walk_parse_pack_kernel"] += batches * nd
+        rec["meshes"][f"{nd}x{nw}"] = {
+            "batches": len(step_s), "tokens": tokens,
+            "step_ms_median": statistics.median(step_s) * 1e3,
+            "step_ms": [t * 1e3 for t in step_s],
+            "unpack_ms_median": statistics.median(unpack_ms),
+            "encode_s": dt, "encode_MB_s": len(data) / dt / 1e6,
+            "encode_bytes_sharded_MB_s":
+                sh_rec["meshes"][f"{nd}x{nw}"]["encode_MB_s"],
+            "stream_equals_native": True,
+        }
+        if (nd, nw) == (1, 1):
+            if lt.decompress(s) != data:
+                raise AssertionError("exact step stream does not decode")
+            want["walk_decode_kernel"] += 1
+            rec["meshes"]["1x1"]["roundtrip"] = True
+        del s
+    for name, (nd, nw), (la, sb), matcher in EXACT_STEP_OTHERS:
+        p = spec.Params(la, sb)
+        t0 = time.perf_counter()
+        s, step_s, tokens = exact_rows_stream(
+            sharded.make_sharded_exact_step(card_mesh(nd, nw), p,
+                                            matcher=matcher), small, p, B, G)
+        dt = time.perf_counter() - t0
+        if s != native.encode(small.tobytes(), p):
+            raise AssertionError(f"exact step {name} stream differs")
+        k = "match_chunk_kernel" if matcher == "chunk" else "match_kernel"
+        want[k] += nd * nw
+        want["walk_parse_pack_kernel"] += nd
+        rec["others"][name] = {
+            "la": p.la, "sb": p.sb, "width": p.width, "matcher": matcher,
+            "input_bytes": int(small.shape[0]), "tokens": tokens,
+            "step_ms": step_s[0] * 1e3, "encode_s": dt,
+            "stream_equals_native": True}
+    launches = read_counts(EXACT_STEP_PATH_KERNELS, "the exact step path")
+    if launches != want:
+        raise AssertionError(f"exact step path launched {launches}, "
+                             f"want {want}")
+    rec.update(launches=launches,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t_phase)
+    return rec, launches
 
 
 # the kernels the multi-process path must launch: K1 in the ranks (both
@@ -2289,6 +2498,11 @@ def main() -> int:
     checks += time_ranged(x, G, args, B, p0, rec1)
     rec2 = check_walk("main_path_batch", args, L, O, G * B, 0, p0,
                       parse_walk.DEFAULT_SUB_BLOCK, reps=10)
+    # the sub-blocks' entries and offsets (the exact sharded step's), from
+    # a nonzero entry
+    checks.append(check_walk("main_path_batch_sub_blocks", args, L, O, G * B,
+                             7, p0, parse_walk.DEFAULT_SUB_BLOCK,
+                             sub_blocks=True))
     del args, L, O
     # K2 at la 2, 15 and 255 (byte-aligned widths), from a nonzero entry:
     # sub-blocks of one byte on one 1 MiB block, the default and 65,535 on
@@ -2565,6 +2779,11 @@ def main() -> int:
         sh_rec["phase_s"] = time.perf_counter() - t0
         emit({"sharded_path": sh_rec})
 
+    # ---- the exact entry-carried sharded step: meshes, widths, chunk ----
+    ex_rec, ex_launches = drive_exact_step_path(data, ref_stream, sh_rec)
+    ex_rec["card"] = card
+    emit({"exact_step": ex_rec})
+
     # ---- the multi-process encode: local ranks on cuda:0 over Gloo ------
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2596,8 +2815,8 @@ def main() -> int:
     _, xla_launches = drive_xla_matcher_path(a.seed)
 
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
-             probe_launches, sh_launches, mh_launches, edge_launches,
-             xla_launches)
+             probe_launches, sh_launches, ex_launches, mh_launches,
+             edge_launches, xla_launches)
     kernels = []
     for rec in (rec1, rec2, rec3, rec4, rec5, rec6, *xrecs):
         name = rec["kernel"]

@@ -211,7 +211,8 @@ def walk_parse_pack_plain(
     ob: int,
     lb: int,
     sub_block: int | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    sub_blocks: bool = False,
+):
     """Plain PyTorch version.  Token slots past the count are zero.
 
     ``sub_block=None``: the chain as a pointer-doubling orbit, S[i] =
@@ -220,8 +221,12 @@ def walk_parse_pack_plain(
     positions with one gather, log2(N) rounds in all.  With ``sub_block``
     it follows the kernel: the sub-blocks' maps, their scan, and the walks
     from the true entries (:func:`_walk_maps_plain`,
-    :func:`_compose_maps_plain`, :func:`_emit_plain`).
+    :func:`_compose_maps_plain`, :func:`_emit_plain`).  ``sub_blocks=True``
+    (which needs ``sub_block``) adds the scan's (M,) int32 ``entries`` and
+    ``offsets`` to the return, as :func:`walk_parse_pack` does.
     """
+    if sub_blocks and sub_block is None:
+        raise ValueError("sub_blocks=True needs a sub_block")
     if sub_block is not None:
         if sub_block < 1:
             raise ValueError(f"sub_block {sub_block} must be positive")
@@ -231,9 +236,12 @@ def walk_parse_pack_plain(
         tokens = _emit_plain(lox, valid_total, sub_block, entries, offsets,
                             la=la, ob=ob, lb=lb)
         dev = lox.device
-        return (tokens,
-                torch.tensor([count], dtype=torch.int32, device=dev),
-                torch.tensor([exit_e], dtype=torch.int32, device=dev))
+        out = (tokens,
+               torch.tensor([count], dtype=torch.int32, device=dev),
+               torch.tensor([exit_e], dtype=torch.int32, device=dev))
+        if sub_blocks:
+            out += (entries.to(torch.int32), offsets.to(torch.int32))
+        return out
     n_ext = lox.shape[0]
     N = n_ext - la
     dev = lox.device
@@ -267,14 +275,20 @@ def walk_parse_pack(
     ob: int,
     lb: int,
     sub_block: int = DEFAULT_SUB_BLOCK,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    sub_blocks: bool = False,
+):
     """K2 wrapper: greedy parse + pack -> (tokens, count, exit_entry).
 
     ``tokens`` is (N,) int32; its first ``count`` words are the packed
     tokens of the exact serial parse (the rest is unspecified).  ``count``
     and ``exit_entry`` are (1,) int32 tensors on ``lox``'s device.
     ``sub_block`` is the bytes one thread walks from one entry (and one
-    thread block's share of the span); it never changes the result.  CUDA
+    thread block's share of the span); it never changes the result.
+    ``sub_blocks=True`` also returns what the scan learnt of the M =
+    ceil(valid_total / sub_block) sub-blocks: ``entries`` (M,) int32, each
+    one's true entry (the offset of its first token start from its own
+    start), and ``offsets`` (M,) int32, the number of tokens before it; the
+    CPU then runs the plain version's ``sub_block`` form.  CUDA
     tensors launch the kernel (or raise); CPU tensors run the plain
     version.  ``walk_parse_pack.launches`` counts launches and
     ``walk_parse_pack.scratch_bytes`` is the device-memory scratch of the
@@ -295,7 +309,9 @@ def walk_parse_pack(
         raise ValueError("span, sub_block or field widths out of range")
     if not lox.is_cuda:
         return walk_parse_pack_plain(
-            lox, entry, valid_total, la=la, ob=ob, lb=lb
+            lox, entry, valid_total, la=la, ob=ob, lb=lb,
+            sub_block=sub_block if sub_blocks else None,
+            sub_blocks=sub_blocks,
         )
     lib = _build.kernels()
     dev = lox.device
@@ -318,6 +334,8 @@ def walk_parse_pack(
     _build.check(err, "walk_parse_pack_kernel")
     walk_parse_pack.launches += 1
     walk_parse_pack.scratch_bytes = 5 * M * la + 8 * M
+    if sub_blocks:
+        return tokens, count, exit_e, entries, offsets
     return tokens, count, exit_e
 
 

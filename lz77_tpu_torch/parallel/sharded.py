@@ -32,10 +32,17 @@ turn costs little while their matches overlap.
 
 Widths that are not byte multiples take K2's words as they are, fetched
 once a batch and packed on the host by ``native.pack_tokens_phase`` with a
-carried bit phase (the JAX package's ``_encode_bytes_sharded_xla``); its
-padded exact step and ``_compact_tokens`` have no counterpart, since K2
-writes compact words.
+carried bit phase (the JAX package's ``_encode_bytes_sharded_xla``), at
+the same stream: K2 writes compact words, so the stream needs neither
+padded rows nor ``_compact_tokens``.
 
+* :func:`make_sharded_exact_step` — the JAX package's exact entry-carried
+  step: the same match and K2 walks, chained shard to shard through K2's
+  exit, with K2's sub-block offsets turning each shard's compact words
+  into padded ``(off, len, next)`` rows, per-block counts and the exit
+  entry.  Where the JAX step all-gathers every shard's (la,) entry -> exit
+  map and composes a prefix (one SPMD program, so no shard can wait for
+  another), K2's scan already gives each block its true entry.
 * :func:`make_sharded_pipeline_step` — the JAX package's block-aligned
   dry-run step: the sharded match, then every block parsed from entry 0
   with its lengths clamped at the block's end (``ops.parse``), padded
@@ -258,6 +265,125 @@ def make_sharded_pipeline_step(mesh, params: spec.Params, *,
         off, ln, nxt, counts = (torch.stack([o[k] for o in outs])
                                 for k in range(4))
         return off, ln, nxt, counts.reshape(G)
+
+    return step
+
+
+def exact_sub_block(B: int) -> int:
+    """The exact step's K2 sub-block for blocks of ``B`` bytes: the largest
+    divisor of B that is at most ``parse_walk.DEFAULT_SUB_BLOCK``, so that
+    every block starts a sub-block.  A block size with no divisor near it
+    (a prime) drives it down to 1: right, but K2 then scans B maps a
+    block."""
+    for s in range(min(B, parse_walk.DEFAULT_SUB_BLOCK), 0, -1):
+        if B % s == 0:
+            return s
+    raise ValueError(f"block size {B} must be positive")
+
+
+def _unpack_rows(tok, count, offsets, k: int, nvb: int, rows: int, B: int):
+    """One shard's K2 words -> padded (off, len, next, counts) rows.
+
+    ``tok`` (N,) int32 holds the shard's ``count`` token words
+    ``off | len<<16 | next<<24``, block after block; ``offsets`` are K2's
+    sub-block offsets, ``k`` sub-blocks a block, so block g's first token
+    is word ``offsets[g * k]``.  Its first ``nvb`` of ``rows`` blocks hold
+    valid bytes; the rest have count 0.  Row g's first ``counts[g]``
+    entries are its tokens, the rest 0 (``off`` is 0 where ``len`` is 0,
+    as every matcher's table has it)."""
+    dev = tok.device
+    first = torch.zeros(rows, dtype=torch.int64, device=dev)
+    counts = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if nvb:
+        first[:nvb] = offsets[: (nvb - 1) * k + 1 : k]
+        counts[:nvb] = torch.diff(first[:nvb], append=count.to(torch.int64))
+    col = torch.arange(B, dtype=torch.int64, device=dev)
+    src = torch.clamp(first[:, None] + col, max=max(tok.shape[0] - 1, 0))
+    w = torch.where(col < counts[:, None], tok[src], 0)
+    return w & 0xFFFF, (w >> 16) & 0xFF, (w >> 24) & 0xFF, counts
+
+
+def make_sharded_exact_step(mesh, params: spec.Params, *,
+                            matcher: str = "sweep"):
+    """Sharded device step with the exact entry-carried parse.
+
+    Returns ``step(blocks, halos, rights, avails, valid_exts, entry0) ->
+    (off, ln, nxt, counts, exit_entry)``.  ``blocks`` (G, B) uint8,
+    ``halos`` (G, d_limit), ``rights`` (G, la-1), ``avails`` and
+    ``valid_exts`` (G,) int32, as numpy arrays or tensors; ``entry0`` an int
+    or an int32 tensor, clipped to [0, la-1].  The rows go to the ``data``
+    axis in shards of ``G / n_data`` (G must be a multiple of it); each
+    shard's (L, O) comes from its members (ranged and combined with a
+    ``win`` axis, as :func:`sharded_match_fn`), and K2 walks the shard's
+    span from the exit of the shard before it, a device tensor never read
+    on the host.  K2 runs at ``ob = 16, lb = 8`` with a sub-block that
+    divides B (:func:`exact_sub_block`), so its sub-block offsets give
+    every block's first token and count.  ``off``, ``ln`` and ``nxt`` are
+    (G, B) int32: row g's first ``counts[g]`` entries are block g's tokens
+    of the serial parse from the block's true entry, the rest 0; ``counts``
+    is (G,) int32 and ``exit_entry`` a 0-d int32 tensor, the entry into the
+    next batch; all on the mesh's first device.  A shard with no valid
+    bytes passes its entry through with zero rows.
+
+    The rows must be consecutive blocks of one input staged as
+    ``codec._batch_inputs`` stages them, a valid prefix: full rows
+    (``valid_exts >= B``), at most one short row, then empty ones.  K2
+    walks a shard as one span, so a short row followed by a non-empty one
+    raises ``ValueError`` (the JAX step gives each block its own valid
+    length).  ``valid_exts`` is read on the host: a CUDA tensor costs one
+    sync.  ``matcher``: any name of ``ops.match.get_matcher`` (``sweep``,
+    K1, by default), ``chunk`` (K4) only without a ``win`` axis.
+    """
+    n_data = mesh.shape[mesh_lib.DATA_AXIS]
+    matcher = _matcher_for(matcher, mesh.shape[mesh_lib.WIN_AXIS])
+    la, dlim = params.la, params.d_limit
+    dev0 = mesh.devices[0, 0]
+
+    def step(blocks, halos, rights, avails, valid_exts, entry0):
+        G, B = blocks.shape
+        check_batch_blocks(G, n_data)
+        vls = np.clip(torch.as_tensor(valid_exts).cpu().numpy()
+                      .astype(np.int64), 0, B)
+        short = np.flatnonzero(vls < B)
+        if short.size and vls[short[0] + 1:].any():
+            raise ValueError(
+                f"block {short[0]} holds {vls[short[0]]} of {B} valid bytes "
+                "and a later block holds more: the exact step takes a valid "
+                "prefix (full blocks, at most one short one, then empty ones)"
+            )
+        sub = exact_sub_block(B)
+        k = B // sub
+        rows = G // n_data
+        shards = _match_shards(mesh, params, matcher,
+                               (blocks, halos, rights, avails, valid_exts),
+                               rows)
+        entry = torch.as_tensor(entry0).reshape(1).clamp(0, la - 1).to(
+            torch.int32)
+        outs = []
+        for d, (r0, inputs, parts) in enumerate(shards):
+            dev = mesh.devices[d, 0]
+            shard_vls = vls[r0 : r0 + rows]
+            vt = int(shard_vls.sum())
+            if vt == 0:
+                z = torch.zeros((rows, B), dtype=torch.int32, device=dev0)
+                outs.append((z, z, z, torch.zeros(rows, dtype=torch.int32,
+                                                  device=dev0)))
+                continue
+            L, O = _combine(parts, dev, dlim)
+            blk, rgt = inputs[0], inputs[2]
+            N = blk.numel()
+            lox = parse_walk.build_lox(
+                L.reshape(N), O.reshape(N), blk.reshape(N), rgt[-1], la)
+            tok, cnt, entry, _, offsets = parse_walk.walk_parse_pack(
+                lox, entry.to(dev), vt, la=la, ob=16, lb=8, sub_block=sub,
+                sub_blocks=True)
+            outs.append(tuple(
+                t.to(dev0) for t in _unpack_rows(
+                    tok, cnt, offsets, k, int((shard_vls > 0).sum()), rows,
+                    B)))
+        off, ln, nxt, counts = (torch.cat([o[i] for o in outs])
+                                for i in range(4))
+        return off, ln, nxt, counts, entry.to(dev0).reshape(())
 
     return step
 

@@ -1,6 +1,7 @@
 """Package rules of the port: what it imports, where it runs, what it
 carries across from the JAX package."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -58,6 +59,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
         "from lz77_tpu_torch import cli\n"
+        "from lz77_tpu_torch.parallel.sharded import make_sharded_exact_step\n"
         "assert cli.main(['-h']) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'lz77_tpu'))\n"
@@ -150,6 +152,12 @@ def test_default_device_raises_without_a_card():
         lambda: codec.encode_bytes(b"abc", matcher="chunked"),
         lambda: sharded.encode_bytes_sharded(b"abc", matcher="bitplane"),
         lambda: distributed.encode_bytes_multihost(b"abc", matcher="chunked"),
+        lambda: sharded.make_sharded_exact_step(
+            mesh_lib.make_mesh(4, 2, devices=["cuda"] * 8),
+            lz77_tpu_torch.Params())(
+            np.zeros((4, 8), np.uint8), np.zeros((4, 4095), np.uint8),
+            np.zeros((4, 14), np.uint8), np.zeros(4, np.int32),
+            np.full(4, 8, np.int32), 0),
     ],
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
@@ -164,7 +172,8 @@ def test_default_device_raises_without_a_card():
          "find_matches_brute", "find_matches_sorted", "find_matches_chunked",
          "find_matches_bitplane", "encode_bytes_host_brute",
          "encode_bytes_fused_sorted", "encode_bytes_chunked",
-         "encode_bytes_sharded_bitplane", "encode_bytes_multihost_chunked"],
+         "encode_bytes_sharded_bitplane", "encode_bytes_multihost_chunked",
+         "make_sharded_exact_step"],
 )
 def test_cuda_without_a_card_raises_and_does_not_fall_back(call):
     _no_card()
@@ -381,3 +390,93 @@ def test_native_cli_builds_once_and_round_trips(tmp_path, rng):
         subprocess.run([cli_bin, "-d", "-i", str(enc), "-o", str(dec)],
                        check=True)
         assert dec.read_bytes() == data
+
+
+# Public names of the JAX package with no same-named counterpart in the port
+# module of the same path.  An alias names the port's function that takes
+# its place; every other entry is a decided difference whose reason stands
+# in ROADMAP.md section 3.
+JAX_ALIASES = {
+    "lz77_tpu/ops/pallas_bitplane.py::find_matches_bitplane_pallas":
+        "lz77_tpu_torch/ops/match.py::match_sweep",
+    "lz77_tpu/ops/pallas_match.py::find_matches_pallas":
+        "lz77_tpu_torch/ops/match_chunk.py::match_chunk",
+    "experiments/bigrun_r5.py::chunk_equal":
+        "lz77_tpu_torch/conformance.py::chunk_equal",
+}
+JAX_DECIDED = {
+    "lz77_tpu/ops/decode_walk.py::decode_geometry",
+    "lz77_tpu/ops/decode_walk.py::stage_tokens",
+    "lz77_tpu/ops/parse_walk.py::walk_geometry",
+    "lz77_tpu/ops/parse_walk.py::stage_lox",
+    "lz77_tpu/ops/fused_walk.py::geometry",
+    "lz77_tpu/ops/pallas_bitplane.py::preferred_block_size",
+    "lz77_tpu/native.py::available",
+    "experiments/multihost_bigrun.py::run_cluster",
+    "experiments/multihost_bigrun.py::free_port",
+}
+
+
+_DEFS = (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)
+
+
+def _module_body(path):
+    with open(path) as f:
+        return ast.parse(f.read()).body
+
+
+def _public_defs(path):
+    """The public top-level functions and classes of a module (``ast``)."""
+    return {n.name for n in _module_body(path)
+            if isinstance(n, _DEFS) and not n.name.startswith("_")}
+
+
+def _top_level(path):
+    """Every name a module binds at its top level: functions, classes,
+    assignments and ``from`` imports (``ast``)."""
+    names = set()
+    for n in _module_body(path):
+        if isinstance(n, _DEFS):
+            names.add(n.name)
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+        elif isinstance(n, ast.ImportFrom):
+            names.update(a.asname or a.name for a in n.names)
+    return names
+
+
+def test_every_public_jax_function_has_a_counterpart():
+    """Every public top-level function and class of ``lz77_tpu/**/*.py``
+    and ``experiments/*.py`` (read with ``ast``; neither is imported) has a
+    same-named counterpart in the port module of the same path
+    (``lz77_tpu_torch/...``, ``lz77_tpu_torch/experiments/...``), or an
+    entry in ``JAX_ALIASES`` (whose target exists) or ``JAX_DECIDED``
+    (whose name ROADMAP.md section 3 gives); no entry is stale."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pairs = []
+    for d, _, files in os.walk(os.path.join(root, "lz77_tpu")):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), root)
+                pairs.append((rel, "lz77_tpu_torch" + rel[len("lz77_tpu"):]))
+    for f in os.listdir(os.path.join(root, "experiments")):
+        if f.endswith(".py"):
+            pairs.append((f"experiments/{f}", f"lz77_tpu_torch/experiments/{f}"))
+    assert len(pairs) > 30
+    missing = set()
+    for src, dst in pairs:
+        dst_path = os.path.join(root, dst)
+        have = _top_level(dst_path) if os.path.exists(dst_path) else set()
+        missing |= {f"{src}::{name}" for name in
+                    _public_defs(os.path.join(root, src)) - have}
+    assert missing == set(JAX_ALIASES) | JAX_DECIDED
+    assert not any(k.endswith("::make_sharded_exact_step") for k in missing)
+    for target in JAX_ALIASES.values():
+        path, name = target.split("::")
+        assert name in _top_level(os.path.join(root, path)), target
+    with open(os.path.join(root, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    section = roadmap.split("### 3.")[1].split("\n## ")[0]
+    for key in JAX_DECIDED:
+        assert f"`{key.split('::')[1]}`" in section, key
