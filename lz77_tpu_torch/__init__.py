@@ -74,11 +74,15 @@ def compress(
     )
 
 
-def decompress(data: bytes, *, backend: str = "device", device=None) -> bytes:
-    """One-call decode of a reference-format stream (self-describing)."""
+def decompress(data: bytes, *, backend: str = "device", device=None,
+               stats=None) -> bytes:
+    """One-call decode of a reference-format stream (self-describing);
+    ``stats``, a ``models.codec.DecodeStats``, records the backend that ran
+    and, under a profiler, the device decode's spans."""
     from .models import codec
 
-    return codec.decode_bytes(data, backend=backend, device=device)
+    return codec.decode_bytes(data, backend=backend, device=device,
+                              stats=stats)
 
 
 def compress_file(

@@ -53,6 +53,7 @@ from ..ops import match as match_ops
 from ..utils import faults as faults_lib
 from ..utils import manifest as manifest_lib
 from ..utils import metrics as metrics_lib
+from ..utils import profiling
 from . import encoder as encoder_model
 from . import fused
 
@@ -91,6 +92,9 @@ class EncodeStats:
     phases: metrics_lib.PhaseTimes = dataclasses.field(
         default_factory=metrics_lib.PhaseTimes
     )
+    # The fused encode's spans, (name, t0_ns, t1_ns), kept only while a
+    # torch profiler runs (``utils.profiling.annotate``).
+    spans: list = dataclasses.field(default_factory=list)
 
     @property
     def ratio(self) -> float:
@@ -110,6 +114,8 @@ class DecodeStats:
     # stage + fetch, write).
     stages: int = 0
     phases: dict = dataclasses.field(default_factory=dict)
+    # The device decode's spans, as ``EncodeStats.spans``.
+    spans: list = dataclasses.field(default_factory=list)
 
 
 def _orbit_np(J: np.ndarray, entry: int, steps: int) -> np.ndarray:
@@ -860,9 +866,10 @@ def decode_bytes(
     if backend == "device":
         from ..ops import decode_walk
 
-        params, off, ln, nxt = bitio.parse_stream(data)
+        with profiling.annotate("decode.unpack", st):
+            params, off, ln, nxt = bitio.parse_stream(data)
         out = decode_walk.decode_tokens_walk(
-            off, ln, nxt, off_bits=params.off_bits, device=device
+            off, ln, nxt, off_bits=params.off_bits, device=device, stats=st
         )
         st.backend = "device-walk"
     elif backend == "device-chunked":

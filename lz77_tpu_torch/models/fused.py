@@ -50,6 +50,7 @@ from ..ops import match as match_ops
 from ..ops import parse_walk
 from ..utils import faults as faults_lib
 from ..utils import metrics as metrics_lib
+from ..utils import profiling
 
 # Batch geometry: 8 blocks of 1 MiB.  An 8 MiB span gives the match kernel
 # 16 Ki thread blocks and the walk 2 Ki sub-blocks — enough to fill the
@@ -359,27 +360,35 @@ def iter_batches_fused(
         phases = stats.phases
     ph = phases if phases is not None else metrics_lib.PhaseTimes()
 
+    # Under a profiler each step below is a span (utils.profiling.annotate)
+    # kept in ``stats.spans``; ``phases.io`` and ``phases.match`` time the
+    # same code with or without one.
     def submit(bi: int, entry_dev):
         g0 = bi * G
         gn = min(G, nblocks - g0)
-        gb, gh, gr, ga, gv = codec_model._batch_inputs(
-            x, n, g0, gn, gn, B, H, R
-        )
+        with profiling.annotate("encode.stage", stats):
+            arrays = codec_model._batch_inputs(x, n, g0, gn, gn, B, H, R)
         vt = min(gn * B, n - g0 * B)
         if stats is not None:
-            stats.h2d_bytes += sum(a.nbytes for a in (gb, gh, gr, ga, gv))
-        payload, _, total, exit_entry = step(
-            gb, gh, gr, ga, gv, vt, entry_dev,
-            la=params.la, sb=params.sb, device=dev,
-        )
+            stats.h2d_bytes += sum(a.nbytes for a in arrays)
+        with profiling.annotate("encode.upload", stats):
+            gb, gh, gr, ga, gv = [torch.from_numpy(a).to(dev) for a in arrays]
+        with profiling.annotate("encode.launch", stats):
+            payload, _, total, exit_entry = step(
+                gb, gh, gr, ga, gv, vt, entry_dev,
+                la=params.la, sb=params.sb, device=dev,
+            )
         return bi, payload, total, exit_entry
 
     def fetch(handle, e_in: int):
         bi, payload, total, exit_entry = handle
         with metrics_lib.StopwatchPhase(ph, "match"):
-            tot, ex = torch.cat([total, exit_entry]).tolist()
+            with profiling.annotate("encode.wait", stats):
+                tot, ex = torch.cat([total, exit_entry]).tolist()
             nbytes = tot * nb_bytes
-            buf = payload[:nbytes].cpu().numpy().tobytes() if nbytes else b""
+            with profiling.annotate("encode.fetch", stats):
+                buf = (payload[:nbytes].cpu().numpy().tobytes() if nbytes
+                       else b"")
             if stats is not None:
                 stats.d2h_bytes += nbytes + 8
         return bi, e_in, ex, tot, buf
@@ -465,7 +474,7 @@ def encode_bytes_fused(
         st.output_bytes = spec.HEADER_BYTES
         return bitio.header_bytes(params)
 
-    parts: list[bytes] = [bitio.header_bytes(params)]
+    parts: list[bytes] = []
     total_tokens = 0
     with metrics_lib.StopwatchPhase(st.phases, "total"):
         for _, _, _, tok, payload in iter_batches_fused(
@@ -478,6 +487,7 @@ def encode_bytes_fused(
                 parts.append(payload)
         st.tokens = total_tokens
         st.blocks = -(-n // block_size)
-        stream = b"".join(parts)
+        with profiling.annotate("encode.assemble", st):
+            stream = b"".join([bitio.header_bytes(params)] + parts)
         st.output_bytes = len(stream)
     return stream

@@ -58,6 +58,7 @@ import torch
 
 from .. import _build
 from .. import device as device_lib
+from ..utils import profiling
 
 _TOKENS_PER_BLOCK = 2048  # SCAN_CHUNK of csrc/decode_common.cuh
 _SYNC_WORDS = 2           # SYNC_FLAGS of csrc/decode_common.cuh
@@ -274,15 +275,20 @@ walk_decode.launches = 0
 walk_decode.scratch_bytes = 0
 
 
-def _checked_token_words(off, ln, nxt, off_bits: int, dev):
+def _checked_token_words(off, ln, nxt, off_bits: int, dev, stats=None):
     """A full token list -> (decode words on ``dev``, output length).  The
-    tokens themselves are checked by the replay (its count comes back -1)."""
+    tokens themselves are checked by the replay (its count comes back -1).
+    Under a profiler the packing and the upload are the ``decode.pack``
+    and ``decode.upload`` spans (into ``stats.spans`` with ``stats``)."""
     if off_bits > 16:
         raise ValueError(
             f"decode token words hold 16 offset bits, got off_bits={off_bits}"
         )
-    out_len = int(ln.sum(dtype=np.int64)) + int(ln.shape[0])
-    return torch.from_numpy(pack_token_words(off, ln, nxt)).to(dev), out_len
+    with profiling.annotate("decode.pack", stats):
+        out_len = int(ln.sum(dtype=np.int64)) + int(ln.shape[0])
+        words = pack_token_words(off, ln, nxt)
+    with profiling.annotate("decode.upload", stats):
+        return torch.from_numpy(words).to(dev), out_len
 
 
 def _count(cnt: torch.Tensor, out_len: int, what: str) -> int:
@@ -301,18 +307,26 @@ def decode_tokens_walk(
     *,
     off_bits: int,
     device: str | torch.device | None = None,
+    stats=None,
 ) -> bytes:
     """Decode a full token list on the device via the walk kernel; a token
     that reaches before the output start, or has ``off == 0`` with a
-    length, raises ``ValueError`` (from the kernel's count)."""
+    length, raises ``ValueError`` (from the kernel's count).  Under a
+    profiler its steps are the spans ``decode.pack``, ``decode.upload``,
+    ``decode.launch``, ``decode.verdict`` (the wait for the kernel's
+    count) and ``decode.fetch``, kept in ``stats.spans`` with ``stats``
+    (a ``DecodeStats``)."""
     dev = device_lib.resolve(device)
     T = int(off.shape[0])
     if T == 0:
         return b""
-    toks, out_len = _checked_token_words(off, ln, nxt, off_bits, dev)
-    out, cnt = walk_decode(toks, T, out_cap=out_len, off_bits=off_bits)
-    _count(cnt, out_len, "walk decode")
-    return out.cpu().numpy().tobytes()
+    toks, out_len = _checked_token_words(off, ln, nxt, off_bits, dev, stats)
+    with profiling.annotate("decode.launch", stats):
+        out, cnt = walk_decode(toks, T, out_cap=out_len, off_bits=off_bits)
+    with profiling.annotate("decode.verdict", stats):
+        _count(cnt, out_len, "walk decode")
+    with profiling.annotate("decode.fetch", stats):
+        return out.cpu().numpy().tobytes()
 
 
 def walk_decode_packed_plain(

@@ -1,6 +1,7 @@
 """Profiling hooks (torch.profiler) — SURVEY.md §5 'tracing/profiling: none'
 in the reference; ``--profile DIR`` on the CLI captures a real trace, and
-:func:`annotate` names a region in it.
+:func:`annotate` names a span of the program in it (and, given a stats
+record, keeps the span's times there).
 """
 
 from __future__ import annotations
@@ -9,6 +10,9 @@ import contextlib
 import json
 import os
 import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -29,7 +33,6 @@ def trace(log_dir: str | None):
     if not log_dir:
         yield
         return
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -69,12 +72,47 @@ def trace(log_dir: str | None):
         json.dump({"wall_us": wall_us, "rows": rows}, f)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region in the profiler's timeline
-    (``torch.profiler.record_function``); costs next to nothing when no
-    profiler runs.  Unlike the JAX package's, it lets any error through."""
-    import torch
+class _Span:
+    """One span while a profiler runs: a ``record_function`` range (the
+    profiler's fast form, with no operator dispatch), and, with ``stats``,
+    the tuple it appends to ``stats.spans``.  The clock is read next to the
+    range's own ends."""
 
-    with torch.profiler.record_function(name):
-        yield
+    __slots__ = ("name", "stats", "rf", "t0")
+
+    def __init__(self, name: str, stats):
+        self.name = name
+        self.stats = stats
+
+    def __enter__(self):
+        self.rf = torch._C._profiler._RecordFunctionFast(self.name)
+        if self.stats is not None:
+            self.t0 = time.time_ns()
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        if self.stats is not None and exc[0] is None:
+            self.stats.spans.append((self.name, self.t0, time.time_ns()))
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, stats=None):
+    """A named span of the program, on only while a torch profiler runs
+    (``torch.profiler.profile``, the CLI's ``--profile DIR``, the
+    benchmark's traced window).
+
+    Off, it costs one attribute read: no ``record_function`` and no clock.
+    On, it is a ``record_function`` range of ``name`` in the profiler's
+    timeline, and with ``stats`` (an ``EncodeStats`` or ``DecodeStats``)
+    it appends ``(name, t0_ns, t1_ns)`` to ``stats.spans``:
+    ``time.time_ns()`` around the range, the clock of the profiler's event
+    timestamps.  Spans are leaves: the program never nests them.  A span
+    that raises is not appended; the error goes through."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, stats)
