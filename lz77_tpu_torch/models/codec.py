@@ -89,6 +89,12 @@ class EncodeStats:
     resyncs: int = 0
     resync_head_tokens: int = 0
     resync_bulk: int = 0
+    # Fused pipeline: the batches a call ran, and those after its first
+    # that were staged and uploaded while the card still ran the batch
+    # before (its event not yet passed): batches whose host work the card
+    # hid.  The CPU runs a batch to its end, so there it stays 0.
+    batches: int = 0
+    batches_overlapped: int = 0
     phases: metrics_lib.PhaseTimes = dataclasses.field(
         default_factory=metrics_lib.PhaseTimes
     )

@@ -38,6 +38,7 @@ and the host fetches the exact payload prefix.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -51,6 +52,7 @@ from ..ops import parse_walk
 from ..utils import faults as faults_lib
 from ..utils import metrics as metrics_lib
 from ..utils import profiling
+from ..utils import transfer as transfer_lib
 
 # Batch geometry: 8 blocks of 1 MiB.  An 8 MiB span gives the match kernel
 # 16 Ki thread blocks and the walk 2 Ki sub-blocks — enough to fill the
@@ -305,6 +307,50 @@ def _resolve_fused_config(
     return block_size, sub_block, parser
 
 
+def _span_start(gn: int, H: int) -> int:
+    """Where a batch's span starts in its staging buffer: after the
+    ``2 * gn`` int32 of ``avails`` and ``valid_exts``, so that its blocks
+    start on a 16-byte boundary."""
+    return 8 * gn + (-(8 * gn + H)) % 16
+
+
+def span_bytes(gn: int, B: int, H: int, R: int) -> int:
+    """Bytes of the staging buffer of a batch of ``gn`` blocks."""
+    return _span_start(gn, H) + gn * B + H + R
+
+
+def stage_span(x: np.ndarray, n: int, g0: int, gn: int, B: int, H: int,
+               R: int, buf: np.ndarray) -> None:
+    """Stage blocks ``g0 .. g0+gn`` of ``x`` in ``buf`` (uint8, at least
+    :func:`span_bytes` long): the int32 ``avails`` and ``valid_exts`` of
+    ``codec._batch_inputs``, then the one span ``x[g0*B - H : (g0+gn)*B +
+    R]`` that holds every block, halo and right extension, with zeros before
+    byte 0 and past byte ``n``."""
+    gs = (g0 + np.arange(gn, dtype=np.int64)) * B
+    ints = buf[: 8 * gn].view(np.int32)
+    ints[:gn] = np.minimum(H, gs)
+    ints[gn:] = np.minimum(B + R, n - gs)
+    lo = g0 * B - H
+    span = buf[_span_start(gn, H): span_bytes(gn, B, H, R)]
+    a, b = max(lo, 0), min((g0 + gn) * B + R, n)
+    span[: a - lo] = 0
+    span[a - lo: b - lo] = x[a:b]
+    span[b - lo:] = 0
+
+
+def rows_from_span(span: torch.Tensor, gn: int, B: int, H: int, R: int):
+    """The matcher's batch (blocks, halos, rights, avails, valid_exts) from
+    a staged buffer (:func:`stage_span`) wherever it lies: the blocks a
+    view of the span, halos and rights one strided gather each."""
+    s0 = _span_start(gn, H)
+    ints = span[: 8 * gn].view(torch.int32)
+    blocks = span[s0 + H: s0 + H + gn * B].view(gn, B)
+    base = span.storage_offset() + s0
+    halos = span.as_strided((gn, H), (B, 1), base).contiguous()
+    rights = span.as_strided((gn, R), (B, 1), base + H + B).contiguous()
+    return blocks, halos, rights, ints[:gn], ints[gn:]
+
+
 def iter_batches_fused(
     x: np.ndarray,
     params: spec.Params,
@@ -321,15 +367,26 @@ def iter_batches_fused(
     retries: int = 2,
     device: str | torch.device | None = None,
 ):
-    """Yield (batch_index, e_in, e_out, token_count, payload_bytes) per batch.
+    """Yield (batch_index, e_in, e_out, token_count, payload) per batch.
 
     The fused device pipeline as a resumable iterator.  ``start_batch`` /
-    ``entry`` resume mid-stream; payloads are byte-aligned token bytes (no
-    header).  Two-deep software pipeline: batch k+1 is submitted before
-    batch k is fetched, and the parse entry rides from batch to batch as a
-    device tensor, so nothing on the dependency chain waits for the host.
-    Launches are asynchronous: while the host stages and fetches, the one
-    CUDA stream keeps working through what was submitted.
+    ``entry`` resume mid-stream; a payload is the batch's byte-aligned token
+    bytes (no header) as a read-only ``memoryview``, valid until the next
+    batch is drawn (its fetch buffer is then refilled).  Two-deep software
+    pipeline: batch k+1 is submitted
+    before batch k is fetched, and the parse entry rides from batch to batch
+    as a device tensor, so nothing on the dependency chain waits for the
+    host.
+
+    A batch's blocks, halos and right extensions are slices of one span of
+    ``x`` (:func:`stage_span`), uploaded whole and cut into rows on the
+    device (:func:`rows_from_span`).  On a CUDA device the span is staged in
+    a page-locked buffer and uploaded on a copy stream without blocking the
+    host, the compute stream waiting on the copy's event; each batch records
+    an event after its last kernel, and its fetch waits on that event alone
+    and copies the results on the copy stream while the next batch computes
+    (``utils.transfer``).  On the CPU the same steps run with a numpy span
+    and no stream or event.
 
     ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel),
     ``"merged"`` (the one merged kernel; it never gives way to the walk) or
@@ -337,8 +394,6 @@ def iter_batches_fused(
     ``matcher`` names the walk's and the scan's match tables' finder
     (``ops.match.get_matcher``); ``"merged"`` takes only ``"sweep"``.
     """
-    from . import codec as codec_model  # lazy: avoid import cycle
-
     dev = device_lib.resolve(device)
     n = x.shape[0]
     block_size, sub_block, parser = _resolve_fused_config(
@@ -359,43 +414,62 @@ def iter_batches_fused(
     if phases is None and stats is not None:
         phases = stats.phases
     ph = phases if phases is not None else metrics_lib.PhaseTimes()
+    cuda = dev.type == "cuda"
 
-    # Under a profiler each step below is a span (utils.profiling.annotate)
-    # kept in ``stats.spans``; ``phases.io`` and ``phases.match`` time the
-    # same code with or without one.
-    def submit(bi: int, entry_dev):
-        g0 = bi * G
-        gn = min(G, nblocks - g0)
-        with profiling.annotate("encode.stage", stats):
-            arrays = codec_model._batch_inputs(x, n, g0, gn, gn, B, H, R)
-        vt = min(gn * B, n - g0 * B)
-        if stats is not None:
-            stats.h2d_bytes += sum(a.nbytes for a in arrays)
-        with profiling.annotate("encode.upload", stats):
-            gb, gh, gr, ga, gv = [torch.from_numpy(a).to(dev) for a in arrays]
-        with profiling.annotate("encode.launch", stats):
-            payload, _, total, exit_entry = step(
-                gb, gh, gr, ga, gv, vt, entry_dev,
-                la=params.la, sb=params.sb, device=dev,
-            )
-        return bi, payload, total, exit_entry
+    with (transfer_lib.borrow(dev) if cuda
+          else contextlib.nullcontext()) as tr:
+        prev_done = None  # the event of the batch submitted last
 
-    def fetch(handle, e_in: int):
-        bi, payload, total, exit_entry = handle
-        with metrics_lib.StopwatchPhase(ph, "match"):
-            with profiling.annotate("encode.wait", stats):
-                tot, ex = torch.cat([total, exit_entry]).tolist()
-            nbytes = tot * nb_bytes
-            with profiling.annotate("encode.fetch", stats):
-                buf = (payload[:nbytes].cpu().numpy().tobytes() if nbytes
-                       else b"")
+        # Under a profiler each step below is a span
+        # (utils.profiling.annotate) kept in ``stats.spans``; ``phases.io``
+        # and ``phases.match`` time the same code with or without one.
+        def submit(bi: int, entry_dev):
+            nonlocal prev_done
+            g0 = bi * G
+            gn = min(G, nblocks - g0)
+            size = span_bytes(gn, B, H, R)
+            with profiling.annotate("encode.stage", stats):
+                buf = (tr.staging(bi % 2, size) if cuda
+                       else np.empty(size, np.uint8))
+                stage_span(x, n, g0, gn, B, H, R, buf)
+            vt = min(gn * B, n - g0 * B)
+            with profiling.annotate("encode.upload", stats):
+                # the card still runs the previous batch: this one's host
+                # work was hidden behind it
+                hidden = prev_done is not None and not prev_done.query()
+                span = (tr.upload(bi % 2, size) if cuda
+                        else torch.from_numpy(buf))
+            with profiling.annotate("encode.launch", stats):
+                payload, _, total, exit_entry = step(
+                    *rows_from_span(span, gn, B, H, R), vt, entry_dev,
+                    la=params.la, sb=params.sb, device=dev,
+                )
+                pair = torch.cat([total, exit_entry])
+                done = tr.done() if cuda else None
             if stats is not None:
-                stats.d2h_bytes += nbytes + 8
-        return bi, e_in, ex, tot, buf
+                stats.h2d_bytes += size
+                stats.batches += 1
+                stats.batches_overlapped += hidden
+            prev_done = done
+            return bi, payload, pair, done, exit_entry
 
-    yield from two_deep(submit, fetch, range(start_batch, num_batches),
-                        entry, device=dev, phases=ph, stats=stats,
-                        retries=retries)
+        def fetch(handle, e_in: int):
+            bi, payload, pair, done, _ = handle
+            with metrics_lib.StopwatchPhase(ph, "match"):
+                with profiling.annotate("encode.wait", stats):
+                    tot, ex = (tr.scalars(pair, done) if cuda
+                               else pair.tolist())
+                nbytes = tot * nb_bytes
+                with profiling.annotate("encode.fetch", stats):
+                    buf = (tr.fetch(payload, nbytes) if cuda
+                           else memoryview(payload[:nbytes].numpy()))
+                if stats is not None:
+                    stats.d2h_bytes += nbytes + 8
+            return bi, e_in, ex, tot, buf
+
+        yield from two_deep(submit, fetch, range(start_batch, num_batches),
+                            entry, device=dev, phases=ph, stats=stats,
+                            retries=retries)
 
 
 def two_deep(submit, fetch, batches, entry: int, *, device, phases, stats,
@@ -474,20 +548,22 @@ def encode_bytes_fused(
         st.output_bytes = spec.HEADER_BYTES
         return bitio.header_bytes(params)
 
-    parts: list[bytes] = []
     total_tokens = 0
-    with metrics_lib.StopwatchPhase(st.phases, "total"):
+    # a token covers at least one input byte: the stream is no longer
+    with metrics_lib.StopwatchPhase(st.phases, "total"), \
+            transfer_lib.BytesBuilder(
+                spec.HEADER_BYTES + n * (params.width // 8)) as out:
+        out.write(bitio.header_bytes(params))
         for _, _, _, tok, payload in iter_batches_fused(
             x, params, block_size=block_size, batch_blocks=batch_blocks,
             sub_block=sub_block, parser=parser, matcher=matcher, stats=st,
             device=dev,
         ):
             total_tokens += tok
-            if payload:
-                parts.append(payload)
+            out.write(payload)  # from the fetch buffer to its place
         st.tokens = total_tokens
         st.blocks = -(-n // block_size)
         with profiling.annotate("encode.assemble", st):
-            stream = b"".join([bitio.header_bytes(params)] + parts)
+            stream = out.finish()
         st.output_bytes = len(stream)
     return stream

@@ -19,7 +19,7 @@ from lz77_tpu.models import codec as jax_codec
 from lz77_tpu.utils import faults as jax_faults
 from lz77_tpu.utils import manifest as jax_manifest
 from lz77_tpu_torch import bitio, convert, native
-from lz77_tpu_torch.models import codec
+from lz77_tpu_torch.models import codec, fused
 from lz77_tpu_torch.ops import decode_walk
 from lz77_tpu_torch.utils import faults, manifest
 
@@ -121,18 +121,21 @@ def test_manifests_cross_between_the_packages(
     assert man == manifest.Manifest.load(mp)
     assert man.completed() == len(d["blocks"]) > 0
     ran = []
-    real = codec._batch_inputs
+    # the batch stager: the host pipeline's rows, the fused one's span
+    module, name = ((codec, "_batch_inputs") if pipeline == "host"
+                    else (fused, "stage_span"))
+    real = getattr(module, name)
 
     def spy(x, n, g0, *a):
         ran.append(g0)
         return real(x, n, g0, *a)
 
-    codec._batch_inputs = spy
+    setattr(module, name, spy)
     try:
         codec.encode_file(ip, op, params, pipeline=pipeline,
                           manifest_path=mp, resume=True, device="cpu", **GEO)
     finally:
-        codec._batch_inputs = real
+        setattr(module, name, real)
     assert min(ran) > 0  # the completed batches were skipped, not redone
     with open(op, "rb") as f:
         assert f.read() == ref_streams[params]

@@ -162,3 +162,81 @@ def test_fused_stats(rng):
     assert st.phases.total > 0
     assert st.h2d_bytes > len(data) and st.d2h_bytes >= len(out) - 4
     assert 0 < st.ratio < 1
+
+
+# (block size, input length, first block, blocks): a batch staged as one span
+SPAN_CASES = {
+    "first_batch": (2048, 5 * 2048 + 700, 0, 2),    # halo before byte 0
+    "resumed_batch": (2048, 5 * 2048 + 700, 2, 2),  # start_batch 1
+    "short_last_block": (2048, 5 * 2048 + 700, 4, 2),
+    "shorter_than_a_block": (2048, 700, 0, 1),
+    "rights_past_the_end": (1000, 3 * 1000 + 5, 1, 3),
+}
+
+
+@pytest.mark.parametrize("la,sb", [(15, 4095), (255, 65535)])
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+def test_rows_from_one_span_equal_the_batch_inputs(rng, case, la, sb):
+    """The rows, halos, rights, avails and valid_exts cut from one staged
+    span are ``codec._batch_inputs``'s, element for element."""
+    B, n, g0, gn = SPAN_CASES[case]
+    p = lz77_tpu_torch.Params(la=la, sb=sb)
+    H, R = p.d_limit, p.len_limit
+    x = rng.integers(0, 256, n, dtype=np.uint8)
+    size = torch_fused.span_bytes(gn, B, H, R)
+    buf = np.full(size + 7, 0xA5, np.uint8)  # stale bytes must not leak
+    torch_fused.stage_span(x, n, g0, gn, B, H, R, buf[:size])
+    got = torch_fused.rows_from_span(torch.from_numpy(buf[:size]), gn, B, H,
+                                     R)
+    want = torch_codec._batch_inputs(x, n, g0, gn, gn, B, H, R)
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        assert g.dtype == torch.from_numpy(w).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("batch_blocks", [1, 2, 3])
+def test_multi_batch_encode_equals_the_native_codec(rng, batch_blocks):
+    """Batches of one span each, entries chained from batch to batch, give
+    the native codec's stream, and upload one span a batch."""
+    data = make_text(rng, 4000) + b"\x00" * 1500 + make_text(rng, 900)
+    st = torch_codec.EncodeStats()
+    out = torch_fused.encode_bytes_fused(
+        data, block_size=512, batch_blocks=batch_blocks, stats=st,
+        device="cpu")
+    assert out == native.encode(data, spec.Params())
+    p = lz77_tpu_torch.Params()
+    nblocks = -(-len(data) // 512)
+    sizes = [min(batch_blocks, nblocks - g0)
+             for g0 in range(0, nblocks, batch_blocks)]
+    assert st.batches == len(sizes)
+    assert st.h2d_bytes == sum(torch_fused.span_bytes(
+        gn, 512, p.d_limit, p.len_limit) for gn in sizes)
+    assert st.batches_overlapped == 0  # the CPU runs each batch to its end
+
+
+def test_bytes_builder_fills_one_bytes_object_in_place():
+    """The stream is a ``bytes`` object written in place and cut to what
+    was written; the caller holds its only reference."""
+    import sys
+
+    from lz77_tpu_torch.utils import transfer
+
+    big = np.frombuffer(bytes(range(256)) * (5 << 12), np.uint8)  # 5 MiB
+    parts = [b"head", memoryview(b"abc" * 1000), big, big[::-1].copy(),
+             np.arange(7, dtype=np.uint8)]
+    b = transfer.BytesBuilder(16 << 20)
+    for part in parts:
+        b.write(part)
+    out = b.finish()
+    assert type(out) is bytes
+    assert out == b"".join(bytes(p) for p in parts)
+    assert sys.getrefcount(out) == 2  # ``out`` and the call's argument
+    assert hash(out) == hash(bytes(out))
+    b.close()  # finished: nothing left to free
+    with transfer.BytesBuilder(64) as unfinished:
+        unfinished.write(b"x" * 10)
+    assert unfinished.size == 10
+    with transfer.BytesBuilder(8) as small, pytest.raises(ValueError):
+        small.write(b"x" * 9)  # past its capacity
+
