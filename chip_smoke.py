@@ -563,6 +563,47 @@ def check_walk(name, args, L, O, vt, entry, p, sub_block, reps=0,
     return rec
 
 
+# ------------------------------------------------------------ the pack ---
+
+def check_pack(tokens: torch.Tensor, reps: int = 0) -> list[dict]:
+    """The walk route's pack (``pack_bits_kernel``) against its plain
+    version: token counts 0, 5 and all of ``tokens`` (K2's words of a main
+    batch, masked to each width), widths 9-32 at their ends and the
+    formats' 24 / 25 / 31, every phase (the large count at phases 0 and
+    5), the phase from the host and from the device; with ``reps`` the
+    time at the large count."""
+    recs = []
+    n = tokens.numel()
+    for width in (9, 17, 24, 25, 31, 32):
+        words = tokens & (-1 if width == 32 else (1 << width) - 1)
+        for total in (0, 5, n):
+            tt = torch.tensor([total], dtype=torch.int32, device="cuda")
+            for phase in range(8):
+                if total == n and phase not in (0, 5):
+                    continue
+                ph = (torch.tensor([phase], dtype=torch.int32, device="cuda")
+                      if phase % 2 else phase)
+                got, ex = parse_walk.pack_bits(words, tt, width, ph, n)
+                want, wex = parse_walk.pack_bits_plain(words.cpu(), total,
+                                                       width, phase)
+                torch.cuda.synchronize()
+                err = max(max_err(got[:want.numel()].cpu(), want),
+                          max_err(ex.cpu(), wex))
+                rec = {"kernel": "pack_bits_kernel", "width": width,
+                       "tokens": total, "phase": phase, "max_abs_err": err}
+                if err != 0:
+                    raise AssertionError(f"pack_bits_kernel disagrees: {rec}")
+                if reps and total == n and phase == 5:
+                    nbytes = 4 * n + -(-(phase + n * width) // 8)
+                    rec.update(
+                        ms=time_ms(lambda: parse_walk.pack_bits(
+                            words, tt, width, ph, n), reps),
+                        bytes=nbytes,
+                        bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                recs.append(rec)
+    return recs
+
+
 # ---------------------------------------------------------------- K3 -----
 
 def limits(p: spec.Params) -> dict:
@@ -1836,9 +1877,10 @@ def edge_kernel_checks(x: np.ndarray, B: int, p: spec.Params) -> list:
 
 def edge_routes(data: bytes, p: spec.Params, B: int, tmp: str) -> dict:
     """Every encode route at one grid point, each stream equal to
-    ``native.encode``'s (the fused parsers only where the width is
-    byte-aligned, elsewhere their ValueError), and every decode route
-    giving the input back; returns the count of checks by route."""
+    ``native.encode``'s (the fused walk at every width, the merged and scan
+    parsers only where the width is byte-aligned, elsewhere their
+    ValueError), and every decode route giving the input back; returns the
+    count of checks by route."""
     want = native.encode(data, p)
     checks = {}
 
@@ -1849,7 +1891,7 @@ def edge_routes(data: bytes, p: spec.Params, B: int, tmp: str) -> dict:
         checks[route] = checks.get(route, 0) + 1
 
     for parser in fused.PARSERS:
-        if bitio.byte_aligned(p):
+        if parser == "walk" or bitio.byte_aligned(p):
             held(f"fused_{parser}", fused.encode_bytes_fused(
                 data, p, block_size=B, parser=parser) == want)
         else:
@@ -2498,6 +2540,13 @@ def main() -> int:
     checks += time_ranged(x, G, args, B, p0, rec1)
     rec2 = check_walk("main_path_batch", args, L, O, G * B, 0, p0,
                       parse_walk.DEFAULT_SUB_BLOCK, reps=10)
+    tok, cnt, _ = parse_walk.walk_parse_pack(
+        parse_walk.build_lox(L.reshape(G * B), O.reshape(G * B),
+                             args[0].reshape(G * B), args[2][-1], p0.la),
+        torch.zeros(1, dtype=torch.int32, device="cuda"), G * B,
+        la=p0.la, ob=p0.off_bits, lb=p0.len_bits)
+    checks += check_pack(tok[:int(cnt)].contiguous(), reps=10)
+    del tok
     # the sub-blocks' entries and offsets (the exact sharded step's), from
     # a nonzero entry
     checks.append(check_walk("main_path_batch_sub_blocks", args, L, O, G * B,

@@ -51,7 +51,7 @@ def compress(
     """One-call encode to a complete reference-format stream.
 
     ``backend``: "device" (a device pipeline on ``device``; kwargs:
-    pipeline — "fused" by default, or "host" for any token width —
+    pipeline — "fused" by default or "host", each at any token width —
     block_size, batch_blocks, sub_block, matcher, stats), "native" (C++
     host encoder) or "numpy" (executable spec).  All emit byte-identical
     streams.

@@ -28,8 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
 
 KERNEL_SOURCES = ("match.cu", "match_chunk.cu", "parse_walk.cu",
-                  "decode_walk.cu", "decode_walk_packed.cu", "fused_walk.cu",
-                  "coissue.cu")
+                  "pack_bits.cu", "decode_walk.cu", "decode_walk_packed.cu",
+                  "fused_walk.cu", "coissue.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +48,9 @@ _KERNEL_ARGTYPES = {
     # valid_total, sub_block, la, ob, lb, stream
     "lz77_walk_parse_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    # tokens, total, width, phase, phase_host, out, phase_out, max_words,
+    # stream
+    "lz77_pack_bits": [_P, _P, _I, _P, _I, _P, _P, _L, _P],
     # tokens, T, out, out_cap, out_words, win, wp, count, sums, sync,
     # off_bits, d_limit, len_limit, tile_words, stream
     "lz77_walk_decode": [_P, _I, _P, _L, _L, _P, _I, _P, _P, _P,

@@ -104,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="host",
                    help="device-backend encode pipeline: 'host' = device "
                         "match + host parse; 'fused' = device-resident "
-                        "match+parse+pack (byte-aligned token widths); "
+                        "match+parse+pack (any token width, in memory "
+                        "where it is not a byte multiple); "
                         "'sharded' = the same over a device mesh (see "
                         "--mesh)")
     p.add_argument("--mesh", default=None, metavar="DATAxWIN",
@@ -301,8 +302,9 @@ def main(argv: list[str] | None = None) -> int:
     # device-backend encode streams file-to-file (memmap input + page release,
     # payload appended as batches land — bounded memory at any input size,
     # like the reference's FILE loop), with or without a manifest.  The one
-    # exception: a non-byte-aligned width under the fused pipeline goes to
-    # the in-memory bytes path, which rejects it with the pipeline's message.
+    # exception: a width that is not a byte multiple under the fused or the
+    # sharded pipeline, which the file routes refuse, goes to the in-memory
+    # bytes path, which encodes every width.
     if (
         args.mode == "encode"
         and args.backend == "device"

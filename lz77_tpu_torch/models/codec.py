@@ -19,8 +19,10 @@ Two encode pipelines, by name:
   fetched only at token starts; a two-deep software pipeline overlaps the
   device match of batch k+1 with the host parse of batch k.
 
-* ``fused`` — the device-resident match + parse + pack (``models.fused``),
-  byte-aligned token widths only.
+* ``fused`` — the device-resident match + parse + pack (``models.fused``):
+  any token width in memory (:func:`encode_bytes`; its walk packs at any
+  bit phase), byte-aligned widths only file to file (:func:`encode_file`,
+  whose manifest records a batch's bytes).
 
 * ``sharded`` — the same per data shard of a device mesh, the shards'
   walks chained through their entries (``parallel.sharded``), byte-aligned
@@ -95,6 +97,10 @@ class EncodeStats:
     # hid.  The CPU runs a batch to its end, so there it stays 0.
     batches: int = 0
     batches_overlapped: int = 0
+    # Fused pipeline: the batches that started inside a byte (a bit phase
+    # other than 0), whose first byte was OR-ed into the stream's last.  0
+    # at every token width that is a byte multiple.
+    seams: int = 0
     phases: metrics_lib.PhaseTimes = dataclasses.field(
         default_factory=metrics_lib.PhaseTimes
     )
@@ -376,14 +382,14 @@ def encode_bytes(
 ) -> bytes:
     """Compress ``data`` into a complete reference-format stream.
 
-    ``pipeline``: "fused" (device-resident, byte-aligned widths; takes
-    ``sub_block``, int or None) or "host" (device match + host parse, any
-    width; takes ``retries`` (default 2), ``fault_injector`` and
-    ``match_fn``, a replacement for its match phase such as
-    ``parallel.sharded.sharded_match_fn``).  Both take every ``matcher``
-    name of ``ops.match.get_matcher`` and emit the same stream.  An
-    argument the chosen pipeline does not take raises ``TypeError``.  The
-    sharded pipeline's bytes entry point is
+    ``pipeline``: "fused" (device-resident, any width with its default
+    walk parser; takes ``sub_block``, int or None) or "host" (device match
+    + host parse, any width; takes ``retries`` (default 2),
+    ``fault_injector`` and ``match_fn``, a replacement for its match phase
+    such as ``parallel.sharded.sharded_match_fn``).  Both take every
+    ``matcher`` name of ``ops.match.get_matcher`` and emit the same
+    stream.  An argument the chosen pipeline does not take raises
+    ``TypeError``.  The sharded pipeline's bytes entry point is
     ``parallel.sharded.encode_bytes_sharded``.
     """
     if pipeline == "fused":

@@ -3,8 +3,9 @@
 Replaces the reference's serial token loop (lz77.c:89-136) AND its bit
 writer (lz77.c:246-251, bitio.c:203-236) with one device computation per
 batch; the host only uploads raw bytes and fetches the packed payload prefix
-and two scalars.  Token widths must be byte multiples (the default 12+4+8 =
-24 bits is).
+and two scalars.  The walk packs tokens of any width at any bit phase; the
+merged and scan steps cut each token word to bytes, so they take only
+widths that are byte multiples (the default 12+4+8 = 24 bits is).
 
 A batch is G consecutive blocks, one contiguous span of the input.  The
 batch step has three forms, chosen by ``parser``:
@@ -14,8 +15,10 @@ batch step has three forms, chosen by ``parser``:
   default); ``build_lox`` fuses them with
   the bytes into one word per position; the walk kernel (``ops.parse_walk``)
   follows the greedy chain from the entry the previous batch left and writes
-  packed token words, their count and the next entry; the words are cut to
-  ``width/8`` bytes each.
+  packed token words, their count and the next entry; the pack kernel
+  (``ops.parse_walk.pack_bits``) writes them ``width`` bits each from the
+  bit phase the previous batch left, and the next phase, all on the
+  device.
 * ``"merged"`` (``ops.fused_walk.encode_batch_sweepwalk``): the same result
   from one kernel that keeps the match tables on the chip; it runs its own
   sweep, so any matcher but ``sweep`` raises.
@@ -77,6 +80,7 @@ def encode_batch_walk(
     valid_exts,   # (G,) int32
     valid_total: int,   # valid bytes in the batch span
     entry0,       # (1,) int32 tensor (or int): parse entry into the batch
+    phase0=None,  # (1,) int32 tensor (or int): bit phase the batch starts at
     *,
     la: int,
     sb: int,
@@ -84,21 +88,22 @@ def encode_batch_walk(
     matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ):
-    """One fused device step over a batch of consecutive blocks.
+    """One fused device step over a batch of consecutive blocks, at any
+    token width.
 
-    Returns (payload, counts, total_tokens, exit_entry): payload is
-    (G*B*nb,) uint8 whose first ``total_tokens * nb`` bytes are the packed
-    tokens; counts is a (G,) zero placeholder (the walk does not split its
-    count by block); total_tokens and exit_entry are (1,) int32 tensors
-    that stay on the device, so the next batch can take ``exit_entry`` as
-    its ``entry0`` without a host round trip.  ``matcher`` names the match
+    Returns (payload, counts, total_tokens, exit_entry), and with
+    ``phase0`` given ``exit_phase`` after them: payload is uint8 whose
+    first ``ceil((phase0 + total_tokens * width) / 8)`` bytes are the
+    tokens packed from bit ``phase0`` on, every other bit zero (without
+    ``phase0`` the batch starts at bit 0); counts is a (G,) zero placeholder
+    (the walk does not split its count by block); total_tokens, exit_entry
+    and exit_phase are (1,) int32 tensors that stay on the device, so the
+    next batch can take ``exit_entry`` and ``exit_phase`` as its ``entry0``
+    and ``phase0`` without a host round trip.  ``matcher`` names the match
     tables' finder (``ops.match.get_matcher``; K1 by default).
     """
     params = spec.Params(la=la, sb=sb)
-    if params.width % 8 != 0:
-        raise ValueError("fused pipeline requires byte-aligned token width")
     dev = device_lib.resolve(device)
-    nb = params.width // 8
 
     def prep(a, dtype):
         return torch.as_tensor(a).to(device=dev, dtype=dtype).contiguous()
@@ -115,12 +120,20 @@ def encode_batch_walk(
     lox = parse_walk.build_lox(
         L.reshape(N), O.reshape(N), blocks.reshape(N), rights[G - 1], la
     )
+    del L, O  # their memory serves the pack's output
+    vt = int(valid_total)
     tokens, total, exit_e = parse_walk.walk_parse_pack(
-        lox, entry0, int(valid_total),
+        lox, entry0, vt,
         la=la, ob=params.off_bits, lb=params.len_bits, sub_block=sub_block,
     )
-    payload = parse_walk.token_bytes(tokens, nb)
-    return payload, torch.zeros(G, dtype=torch.int32, device=dev), total, exit_e
+    del lox
+    if phase0 is not None and not isinstance(phase0, int):
+        phase0 = prep(phase0, torch.int32).reshape(1)
+    payload, exit_phase = parse_walk.pack_bits(
+        tokens, total, params.width, 0 if phase0 is None else phase0, vt)
+    out = (payload, torch.zeros(G, dtype=torch.int32, device=dev), total,
+           exit_e)
+    return out if phase0 is None else out + (exit_phase,)
 
 
 def encode_batch_device(
@@ -283,15 +296,18 @@ def _resolve_fused_config(
     n-byte input.  ``sub_block`` is the walk's or the scan's; the merged
     kernel has its own fixed tile and takes none, and its own sweep: with
     any other matcher it raises (the JAX package quietly runs the walk
-    there; this one has no quiet route switch)."""
-    if params.width % 8 != 0:
-        raise ValueError("fused pipeline requires byte-aligned token width")
+    there; this one has no quiet route switch).  The walk takes every
+    token width; the merged and scan steps refuse one that is not a byte
+    multiple (the JAX package's fused pipeline refuses it on every
+    route)."""
     if parser not in PARSERS:
         raise ValueError(
             f"unknown parser {parser!r}; available: {', '.join(PARSERS)}"
         )
     if parser == "walk" and fused_walk.MERGED_DEFAULT:
         parser = "merged"
+    if parser != "walk" and params.width % 8 != 0:
+        raise ValueError("fused pipeline requires byte-aligned token width")
     if parser == "merged" and match_ops.route_matcher(matcher) != "sweep":
         raise ValueError(
             "parser 'merged' runs its own sweep (matcher 'sweep'); "
@@ -370,13 +386,18 @@ def iter_batches_fused(
     """Yield (batch_index, e_in, e_out, token_count, payload) per batch.
 
     The fused device pipeline as a resumable iterator.  ``start_batch`` /
-    ``entry`` resume mid-stream; a payload is the batch's byte-aligned token
-    bytes (no header) as a read-only ``memoryview``, valid until the next
-    batch is drawn (its fetch buffer is then refilled).  Two-deep software
-    pipeline: batch k+1 is submitted
-    before batch k is fetched, and the parse entry rides from batch to batch
-    as a device tensor, so nothing on the dependency chain waits for the
-    host.
+    ``entry`` resume mid-stream at bit phase 0, so at a byte-multiple token
+    width (the file route, the one that resumes, takes no other); a payload
+    is the batch's tokens packed from the bit phase the batches before it
+    left (no header) as a read-only ``memoryview``, valid until the next
+    batch is drawn (its fetch buffer is then refilled).  Where that phase is
+    not 0, the payload's first byte holds the stream's last bits as zeros
+    and is OR-ed into the stream's last byte
+    (``utils.transfer.BytesBuilder.write``).  Two-deep software pipeline:
+    batch k+1 is submitted before batch k is fetched, and the parse entry
+    and the bit phase ride from batch to batch as device tensors, so
+    nothing on the dependency chain waits for the host; the host keeps its
+    own phase to size each fetch.
 
     A batch's blocks, halos and right extensions are slices of one span of
     ``x`` (:func:`stage_span`), uploaded whole and cut into rows on the
@@ -388,9 +409,10 @@ def iter_batches_fused(
     (``utils.transfer``).  On the CPU the same steps run with a numpy span
     and no stream or event.
 
-    ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel),
-    ``"merged"`` (the one merged kernel; it never gives way to the walk) or
-    ``"scan"`` (match sweep + the scan parser in plain tensor code).
+    ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel +
+    pack kernel, any token width), ``"merged"`` (the one merged kernel; it
+    never gives way to the walk) or ``"scan"`` (match sweep + the scan
+    parser in plain tensor code); the last two take byte-multiple widths.
     ``matcher`` names the walk's and the scan's match tables' finder
     (``ops.match.get_matcher``); ``"merged"`` takes only ``"sweep"``.
     """
@@ -406,7 +428,7 @@ def iter_batches_fused(
             encode_batch_walk if parser == "walk" else encode_batch_device,
             sub_block=sub_block, matcher=matcher,
         )
-    nb_bytes = params.width // 8
+    width = params.width
     B, G = block_size, batch_blocks
     H, R = params.d_limit, params.len_limit
     nblocks = -(-n // B)
@@ -419,12 +441,16 @@ def iter_batches_fused(
     with (transfer_lib.borrow(dev) if cuda
           else contextlib.nullcontext()) as tr:
         prev_done = None  # the event of the batch submitted last
+        # the bit phase the next batch starts at: on the device (an int
+        # before the first batch; the merged and scan steps start every
+        # batch at 0, their widths being byte multiples), and on the host
+        phase_dev, phase_host = 0, 0
 
         # Under a profiler each step below is a span
         # (utils.profiling.annotate) kept in ``stats.spans``; ``phases.io``
         # and ``phases.match`` time the same code with or without one.
         def submit(bi: int, entry_dev):
-            nonlocal prev_done
+            nonlocal prev_done, phase_dev
             g0 = bi * G
             gn = min(G, nblocks - g0)
             size = span_bytes(gn, B, H, R)
@@ -440,8 +466,9 @@ def iter_batches_fused(
                 span = (tr.upload(bi % 2, size) if cuda
                         else torch.from_numpy(buf))
             with profiling.annotate("encode.launch", stats):
-                payload, _, total, exit_entry = step(
+                payload, _, total, exit_entry, *exit_phase = step(
                     *rows_from_span(span, gn, B, H, R), vt, entry_dev,
+                    *((phase_dev,) if parser == "walk" else ()),
                     la=params.la, sb=params.sb, device=dev,
                 )
                 pair = torch.cat([total, exit_entry])
@@ -451,20 +478,26 @@ def iter_batches_fused(
                 stats.batches += 1
                 stats.batches_overlapped += hidden
             prev_done = done
+            if exit_phase:
+                phase_dev = exit_phase[0]
             return bi, payload, pair, done, exit_entry
 
         def fetch(handle, e_in: int):
+            nonlocal phase_host
             bi, payload, pair, done, _ = handle
             with metrics_lib.StopwatchPhase(ph, "match"):
                 with profiling.annotate("encode.wait", stats):
                     tot, ex = (tr.scalars(pair, done) if cuda
                                else pair.tolist())
-                nbytes = tot * nb_bytes
+                bits = phase_host + tot * width
+                nbytes = -(-bits // 8)
                 with profiling.annotate("encode.fetch", stats):
                     buf = (tr.fetch(payload, nbytes) if cuda
                            else memoryview(payload[:nbytes].numpy()))
                 if stats is not None:
                     stats.d2h_bytes += nbytes + 8
+                    stats.seams += phase_host != 0
+            phase_host = bits & 7
             return bi, e_in, ex, tot, buf
 
         yield from two_deep(submit, fetch, range(start_batch, num_batches),
@@ -524,11 +557,13 @@ def encode_bytes_fused(
     matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ) -> bytes:
-    """Compress via the fused device pipeline (byte-aligned widths only).
+    """Compress via the fused device pipeline.
 
-    ``parser``: "walk" (match sweep + walk kernel, the default), "merged"
-    (one kernel for match, parse and pack) or "scan" (match sweep + the
-    plain-tensor scan parser); the three give one stream.  ``matcher``:
+    ``parser``: "walk" (match sweep + walk kernel + pack kernel, the
+    default; any token width), "merged" (one kernel for match, parse and
+    pack) or "scan" (match sweep + the plain-tensor scan parser), the last
+    two at token widths that are byte multiples only; the three give one
+    stream.  ``matcher``:
     any name of ``ops.match.get_matcher`` for the walk and the scan; the
     merged kernel runs its own sweep and refuses every other.
     """
@@ -552,15 +587,18 @@ def encode_bytes_fused(
     # a token covers at least one input byte: the stream is no longer
     with metrics_lib.StopwatchPhase(st.phases, "total"), \
             transfer_lib.BytesBuilder(
-                spec.HEADER_BYTES + n * (params.width // 8)) as out:
+                spec.HEADER_BYTES + -(-n * params.width // 8)) as out:
         out.write(bitio.header_bytes(params))
         for _, _, _, tok, payload in iter_batches_fused(
             x, params, block_size=block_size, batch_blocks=batch_blocks,
             sub_block=sub_block, parser=parser, matcher=matcher, stats=st,
             device=dev,
         ):
+            # from the fetch buffer to its place; a batch that starts
+            # inside a byte shares it with the stream's last
+            with profiling.annotate("encode.write", st):
+                out.write(payload, seam=total_tokens * params.width % 8 != 0)
             total_tokens += tok
-            out.write(payload)  # from the fetch buffer to its place
         st.tokens = total_tokens
         st.blocks = -(-n // block_size)
         with profiling.annotate("encode.assemble", st):

@@ -84,9 +84,96 @@ def build_lox(
 
 def token_bytes(tokens: torch.Tensor, nb: int) -> torch.Tensor:
     """(N,) int32 token words -> (N*nb,) uint8: the low ``nb`` bytes of each
-    word, little-endian — the payload of a byte-aligned token width."""
+    word, little-endian — the payload of a byte-aligned token width (the
+    merged and scan routes' and the sharded one's; the walk route packs
+    with :func:`pack_bits`)."""
     N = tokens.shape[0]
     return tokens.view(torch.uint8).reshape(N, 4)[:, :nb].reshape(N * nb)
+
+
+def pack_bits_plain(tokens: torch.Tensor, total, width: int, phase):
+    """Plain PyTorch version of :func:`pack_bits`, in the kernel's steps:
+    each output word gathers the (at most ``ceil(31 / width) + 1``) tokens
+    that cover it.  ``total`` and ``phase`` are ints or one-element
+    tensors.  Returns the payload, uint8 of exactly ``4 * ceil((phase +
+    total * width) / 32)`` bytes, and the exit phase as a (1,) int32
+    tensor."""
+    t, ph = int(total), int(phase)
+    dev = tokens.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    bits = ph + t * width
+    w0 = 32 * torch.arange(-(-bits // 32), **i64)
+    i = torch.clamp(w0 - ph, min=0) // width
+    start = ph + i * width - w0
+    # the tokens and one zero word, which every index past them reads
+    tok = torch.cat([tokens[:t].to(torch.int64) & ((1 << width) - 1),
+                     torch.zeros(1, **i64)])
+    acc = torch.zeros_like(w0)
+    for _ in range((31 + width - 1) // width + 1):
+        v = torch.where(start < 32, tok[torch.clamp(i, max=t)], 0)
+        acc |= torch.where(start >= 0, v << start.clamp(0, 31),
+                           v >> (-start).clamp(min=0)) & 0xFFFFFFFF
+        i, start = i + 1, start + width
+    # fold into int32's range, then the words' little-endian bytes
+    acc = torch.where(acc >= (1 << 31), acc - (1 << 32), acc)
+    return (acc.to(torch.int32).view(torch.uint8),
+            torch.tensor([bits & 7], dtype=torch.int32, device=dev))
+
+
+def pack_bits(tokens: torch.Tensor, total: torch.Tensor, width: int, phase,
+              max_tokens: int):
+    """Pack the first ``total`` token words at ``width`` bits each (9..32)
+    from bit ``phase`` (0..7) on, LSB-first as ``spec`` states -> (payload,
+    exit_phase).
+
+    ``tokens`` is int32 (K2's compacted words), ``total`` a (1,) int32
+    tensor on its device, ``phase`` a (1,) int32 tensor there (the last
+    batch's exit phase) or an int.  ``payload`` is uint8 whose first
+    ``ceil((phase + total * width) / 8)`` bytes are the packed tokens, every
+    bit outside them zero (the first ``phase`` bits of byte 0 too, so that
+    byte is OR-ed into the stream's last); ``exit_phase`` is (phase + total
+    * width) & 7 as a (1,) int32 tensor on the device.  ``max_tokens``, a
+    host bound of ``total``, sizes the grid and the payload: nothing is read
+    back to the host.  CUDA tensors launch ``csrc/pack_bits.cu`` (or raise);
+    CPU tensors run :func:`pack_bits_plain`.  ``pack_bits.launches`` counts
+    launches.
+    """
+    if not 9 <= width <= 32:
+        raise ValueError(f"token width {width} outside [9, 32]")
+    if tokens.dtype != torch.int32 or tokens.dim() != 1 \
+            or not tokens.is_contiguous() or tokens.shape[0] < max_tokens:
+        raise ValueError("tokens must be a contiguous (>= max_tokens,) "
+                         "int32 tensor")
+    dev_phase = isinstance(phase, torch.Tensor)
+    if total.dtype != torch.int32 or total.shape != (1,) \
+            or total.device != tokens.device or (dev_phase and (
+                phase.dtype != torch.int32 or phase.shape != (1,)
+                or phase.device != tokens.device)):
+        raise ValueError("total and a tensor phase must be (1,) int32 "
+                         "tensors on tokens' device")
+    if not dev_phase and not 0 <= phase <= 7:
+        raise ValueError(f"phase {phase} outside [0, 7]")
+    if not tokens.is_cuda:
+        return pack_bits_plain(tokens, total, width, phase)
+    lib = _build.kernels()
+    dev = tokens.device
+    max_words = max(1, -(-(7 + max_tokens * width) // 32))
+    out = torch.empty(4 * max_words, dtype=torch.uint8, device=dev)
+    exit_phase = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lz77_pack_bits(
+            tokens.data_ptr(), total.data_ptr(), width,
+            phase.data_ptr() if dev_phase else None,
+            0 if dev_phase else int(phase), out.data_ptr(),
+            exit_phase.data_ptr(), max_words,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "pack_bits_kernel")
+    pack_bits.launches += 1
+    return out, exit_phase
+
+
+pack_bits.launches = 0
 
 
 def token_words_at(lox: torch.Tensor, starts: torch.Tensor, *, ob: int,

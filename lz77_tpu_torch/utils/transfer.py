@@ -11,7 +11,8 @@ scalars; its buffers grow to the largest batch seen and are never freed.
 
 :class:`BytesBuilder` builds a compress call's stream: a new ``bytes``
 object as large as the stream can be, filled front to back as each batch
-lands and cut to its length at the end, with the C API's own means of
+lands (a batch that starts inside a byte OR-ed into it) and cut to its
+length at the end, with the C API's own means of
 building a bytes object (``PyBytes_FromStringAndSize(NULL, n)``,
 ``_PyBytes_Resize``).  Each byte of the stream is copied once on the host.
 """
@@ -57,9 +58,17 @@ class BytesBuilder:
             _bytes_data(self._obj), capacity, _PYBUF_WRITE), np.uint8)
         self.size = 0
 
-    def write(self, data) -> None:
-        """Append ``data`` (any buffer of bytes)."""
+    def write(self, data, seam: bool = False) -> None:
+        """Append ``data`` (any buffer of bytes); with ``seam``, its first
+        byte is OR-ed into the last byte written (a bit-packed payload that
+        starts inside that byte, its bits below the phase zero) and the
+        rest appended."""
         src = np.frombuffer(data, np.uint8)
+        if seam and src.shape[0]:
+            if not self.size:
+                raise ValueError("BytesBuilder: a seam before any byte")
+            self._arr[self.size - 1] |= src[0]
+            src = src[1:]
         n = src.shape[0]
         if self.size + n > self._arr.shape[0]:
             raise ValueError("BytesBuilder: write past its capacity")

@@ -55,17 +55,17 @@ def test_input_runs_one_byte_across_a_block_boundary():
 
 @GRID
 def test_encode_routes_give_the_jax_stream(la, sb):
-    """fused walk / merged / scan where the width is byte-aligned (else the
-    JAX package's ValueError), the host pipeline with both matchers, a 2x2
-    CPU mesh and the native binding: the JAX native stream, itself equal to
-    the JAX executable spec's."""
+    """fused walk at every width, merged / scan where the width is
+    byte-aligned (else the JAX package's ValueError), the host pipeline
+    with both matchers, a 2x2 CPU mesh and the native binding: the JAX
+    native stream, itself equal to the JAX executable spec's."""
     want = jax_stream(la, sb)
     assert want == jax_spec_np.encode(DATA, jax_spec.Params(la, sb))
     p = spec.Params(la, sb)
     assert spec_np.encode(DATA, p) == want
     assert native.encode(DATA, p) == want
     for parser in fused.PARSERS:
-        if bitio.byte_aligned(p):
+        if parser == "walk" or bitio.byte_aligned(p):
             assert fused.encode_bytes_fused(
                 DATA, p, block_size=B, parser=parser, device="cpu") == want
         else:

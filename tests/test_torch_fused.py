@@ -101,15 +101,32 @@ def test_fused_nondefault_aligned_params(la, sb, rng):
 
 
 def test_fused_rejects_unaligned_width():
+    """At 25-bit tokens the walk encodes (the JAX package's fused pipeline
+    refuses); the merged and scan steps refuse, as the JAX package's do."""
     params = lz77_tpu_torch.Params(la=17, sb=4095)  # 12+5+8 = 25 bits
+    data = b"abcabcabd" * 3
+    assert torch_fused.encode_bytes_fused(data, params, device="cpu") \
+        == native.encode(data, spec.Params(la=17, sb=4095))
+    for parser in ("merged", "scan"):
+        with pytest.raises(ValueError, match="byte-aligned"):
+            torch_fused.encode_bytes_fused(data, params, parser=parser,
+                                           device="cpu")
     with pytest.raises(ValueError, match="byte-aligned"):
-        torch_fused.encode_bytes_fused(b"abc", params, device="cpu")
+        jax_fused.encode_bytes_fused(data, spec.Params(la=17, sb=4095))
+    batch = (np.array([list(b"abcabcab")], np.uint8),
+             np.zeros((1, 4095), np.uint8), np.zeros((1, 16), np.uint8),
+             np.zeros(1, np.int32), np.full(1, 8, np.int32), 8, 0)
+    payload, _, total, exit_e, phase = torch_fused.encode_batch_walk(
+        *batch, 5, la=17, sb=4095, device="cpu")
+    # three literals, then (3, 4) and "b": four 25-bit tokens from bit 5,
+    # so the next batch starts at bit (5 + 100) % 8 = 1
+    assert (int(total), int(exit_e), int(phase)) == (4, 0, 1)
+    stream = native.encode(b"abcabcab", spec.Params(la=17, sb=4095))
+    bits = int.from_bytes(stream[4:], "little") << 5
+    assert bytes(payload[:14].numpy()) == bits.to_bytes(14, "little")
     with pytest.raises(ValueError, match="byte-aligned"):
-        torch_fused.encode_batch_walk(
-            np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
-            np.zeros((1, 16), np.uint8), np.zeros(1, np.int32),
-            np.zeros(1, np.int32), 8, 0, la=17, sb=4095, device="cpu",
-        )
+        torch_fused.encode_batch_device(*batch, la=17, sb=4095,
+                                        device="cpu")
 
 
 def test_fused_roundtrip_and_backends(rng):

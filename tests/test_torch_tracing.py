@@ -27,8 +27,11 @@ BLOCK, BATCH, NBYTES = 2048, 2, 5 * 2048 + 700
 SLACK_NS = 200_000  # a span against its record_function range: 0.2 ms
 SUBMIT = ["encode.stage", "encode.upload", "encode.launch"]
 FETCH = ["encode.wait", "encode.fetch"]
-# the two-deep loop: batch k+1 is submitted before batch k is fetched
-ENCODE_ORDER = SUBMIT * 2 + FETCH + SUBMIT + FETCH * 2 + ["encode.assemble"]
+WRITE = ["encode.write"]
+# the two-deep loop: batch k+1 is submitted before batch k is fetched, and
+# each payload is written into the stream once it is fetched
+ENCODE_ORDER = (SUBMIT * 2 + FETCH + WRITE + SUBMIT + FETCH + WRITE + FETCH
+                + WRITE + ["encode.assemble"])
 DECODE_ORDER = ["decode.unpack", "decode.pack", "decode.upload",
                 "decode.launch", "decode.verdict", "decode.fetch"]
 
