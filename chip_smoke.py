@@ -106,7 +106,16 @@ launch counts set to 0 just before and read just after:
   ``chunked``, K1, K4 and K5 launched by none.  Its ``xla_matchers`` line
   gives each matcher's median time at each shape with K1's beside it, its
   peak device memory, its device kernels a call, the grid and route
-  checks, the matchers' calls on the routes, and the card.
+  checks, the matchers' calls on the routes, and the card;
+* K1's wide-window route (``drive_match_chain_path``, which runs alone
+  too): ``match.chain_kernel`` against the sweep kernel and its plain
+  version (tables and counters) on small batches at la 2..255 and sb
+  16,385..65,535 and budgets 0, 1, 7 and the default, and at the
+  ``edges.GRID`` points it serves; then on (8, 1 MiB) batches of each
+  benchmark class at la 255, sb 32,767 and 65,535 (and la 15, sb 4095,
+  the default window's lead): both kernels timed, hops and fallbacks a
+  position, the pre-pass's kernels' device time, other hop budgets.  Its
+  ``match_chain`` line gives them by class.
 
 K1 over a range of distances (the window axis) is held against its plain
 version on splits of 2, 3 and 4 members at la 2 / 15 / 255 x sb 15 / 4095
@@ -2053,6 +2062,161 @@ def drive_edge_path(seed: int = 0) -> tuple[dict, dict]:
     return rec, launches
 
 
+# ------------------------------------------- K1's wide-window route -----
+
+# (class, index of a file of that class in the benchmark's configurations):
+# the files' surrogates, as ``codec_bench/pool.py`` makes them
+CHAIN_CLASSES = (("english", 0), ("source", 7), ("xml", 10), ("records", 3),
+                 ("binary", 1), ("random", 11))
+# hop budgets timed, as shares of the sweep's d_limit / 4 word steps
+CHAIN_BUDGET_SHARES = (1 / 64, 1 / 32, 1 / 16, 1 / 8, 1 / 4)
+
+
+def check_chain(name, args, p, budget=None, plain=True):
+    """K1's wide-window route (``match.chain_kernel``) on one batch on the
+    card against the sweep kernel and, with ``plain``, against its plain
+    version on the card, counters included; returns the record."""
+    kw = dict(la=p.la, sb=p.sb)
+    c = match.new_counters("cuda")
+    L, O = match.chain_kernel(*args, **kw, budget=budget, counters=c)
+    Ls, Os = match.sweep_kernel(*args, **kw)
+    walked, hops, fell = c.tolist()
+    rec = {"case": name, "la": p.la, "sb": p.sb,
+           "shape": list(args[0].shape),
+           "budget": match.chain_budget(p.d_limit) if budget is None
+           else budget,
+           "max_abs_err_vs_sweep": max(max_err(L, Ls), max_err(O, Os)),
+           "positions": int(args[0].numel()), "walked": walked,
+           "hops": hops, "fallbacks": fell}
+    if plain:
+        cp = match.new_counters("cuda")
+        Lp, Op = match.match_chain_plain(*args, **kw, budget=budget,
+                                         counters=cp)
+        rec["max_abs_err"] = max(max_err(L, Lp), max_err(O, Op))
+        rec["plain_counters"] = cp.tolist()
+        if cp.tolist() != c.tolist():
+            raise AssertionError(f"the route's counters differ: {rec}")
+    if rec["max_abs_err_vs_sweep"] or rec.get("max_abs_err"):
+        raise AssertionError(f"the wide-window route disagrees: {rec}")
+    return rec
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``
+    (names without their arguments)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms: dict = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+        ms[name] = ms.get(name, 0.0) + ev.device_time_total / 1e3
+    return ms
+
+
+def drive_match_chain_path(seed: int = 0, reps: int = 3) -> dict:
+    """K1's wide-window route on the card (runs alone too).
+
+    Small batches: text, runs, zeros, random bytes and few-letter bytes at
+    la 2, 4, 5, 15, 255 and sb 16,385, 32,767, 65,535 (the stream start,
+    full halos, valid_ext inside the last block), at the default budget
+    and at budgets 0, 1 and 7 (fallbacks); the sb >= 16,384 points of
+    ``edges.GRID`` on the edge input; each against the sweep kernel and
+    the plain version with its counters.  Then (8, 1 MiB) batches of each
+    benchmark class (the second MiB on, so every window is whole) at la
+    255, sb 32,767 and 65,535: the route against the sweep kernel and the
+    plain version, both kernels timed, hops and fallbacks; the pre-pass's
+    and the walk's device time by kernel; times at other hop budgets on
+    the classes that set the time; and both routes at sb 4095 (the default
+    window's lead).  Prints the ``match_chain`` line; returns it."""
+    from codec_bench import pool
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    checks = []
+    small = np.concatenate([
+        make_text(rng, 30000), np.zeros(700, np.uint8),
+        rng.integers(0, 4, 6000, dtype=np.uint8),
+        np.tile(np.frombuffer(b"abcab", np.uint8), 900),
+        rng.integers(0, 256, 3000, dtype=np.uint8), make_text(rng, 30000)])
+    for la in (2, 4, 5, 15, 255):
+        for sb in (16385, 32767, 65535):
+            p = spec.Params(la, sb)
+            for g0, G, B in ((0, 3, 1800), (2, 4, 20001)):
+                args, _ = batch_on_card(small, g0, G, B, p)
+                for budget in (None, 0, 1, 7):
+                    checks.append(check_chain(
+                        f"small_g{g0}_b{budget}", args, p, budget))
+    for name, xs in (("zeros", np.zeros(70000, np.uint8)),
+                     ("random", rng.integers(0, 256, 70000, dtype=np.uint8))):
+        args, _ = batch_on_card(xs, 0, 3, 30000, spec.Params(255, 65535))
+        checks.append(check_chain(name, args, spec.Params(255, 65535)))
+    ex = np.frombuffer(edges.make_input(seed, **edges.CARD_SIZES), np.uint8)
+    for la, sb in edges.GRID:
+        if spec.d_limit(sb) >= match.CHAIN_MIN_DLIM:
+            p = spec.Params(la, sb)
+            args, _ = batch_on_card(ex, 0, 8, edges.CARD_SIZES["block_size"],
+                                    p)
+            checks.append(check_chain(f"edges_la{la}_sb{sb}", args, p))
+    t1 = time.perf_counter()
+    progress("match_chain: small checks", t0)
+
+    G, B = fused.DEFAULT_BATCH_BLOCKS, fused.DEFAULT_BLOCK_SIZE
+    by_class = {}
+    prepass = None
+    for cls, idx in CHAIN_CLASSES:
+        x = np.frombuffer(pool.make_file(cls, (G + 1) * B, seed, idx),
+                          np.uint8)
+        row = {}
+        for sb in (32767, 65535, 4095):
+            p = spec.Params(255 if sb != 4095 else 15, sb)
+            args, _ = batch_on_card(x, 1, G, B, p)
+            kw = dict(la=p.la, sb=p.sb)
+            r = check_chain(f"{cls}_sb{sb}", args, p, plain=sb != 4095)
+            r["ms"] = time_ms(lambda: match.chain_kernel(*args, **kw), reps)
+            r["sweep_ms"] = time_ms(lambda: match.sweep_kernel(*args, **kw),
+                                    reps)
+            r["hops_per_walked"] = r["hops"] / max(1, r["walked"])
+            r["hops_per_position"] = r["hops"] / r["positions"]
+            r["fallback_share"] = 100 * r["fallbacks"] / max(1, r["walked"])
+            if cls in ("records", "binary") and sb != 4095:
+                r["ms_by_budget_share"] = {}
+                for share in CHAIN_BUDGET_SHARES:
+                    bud = int(p.d_limit // 4 * share)
+                    c = match.new_counters("cuda")
+                    match.chain_kernel(*args, **kw, budget=bud, counters=c)
+                    r["ms_by_budget_share"][f"{share:.4f}"] = {
+                        "budget": bud, "fallbacks": c.tolist()[2],
+                        "ms": time_ms(lambda: match.chain_kernel(
+                            *args, **kw, budget=bud), reps)}
+            if cls == "records" and sb == 65535:
+                prepass = device_ms_by_kernel(
+                    lambda: match.chain_kernel(*args, **kw))
+            row[f"sb{sb}"] = r
+            del args
+        by_class[cls] = row
+        progress(f"match_chain: {cls}", t0)
+    rec = {"checks": len(checks),
+           "max_abs_err": max(r.get("max_abs_err", 0) for r in checks),
+           "max_abs_err_vs_sweep": max(r["max_abs_err_vs_sweep"]
+                                       for r in checks),
+           "fallback_checks": sum(r["fallbacks"] > 0 for r in checks),
+           "main_shape": [G, B], "by_class": by_class,
+           "device_ms_by_kernel_records_sb65535": prepass,
+           "budget_share": match.CHAIN_BUDGET_SHARE,
+           "small_s": t1 - t0, "seconds": time.perf_counter() - t0}
+    emit({"match_chain": rec})
+    # the plain versions' passes leave gigabytes in the allocator's cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ------------------------------------------------------- XLA matchers -----
 
 XLA_MATCHERS = ("brute", "sorted", "chunked", "bitplane")
@@ -2288,6 +2452,9 @@ def drive_xla_matcher_path(seed: int = 0) -> tuple[dict, dict]:
             progress(f"xla route sharded 2x2 {m}", t0)
         out = os.path.join(tmp, "mh.lz")
         ts = time.perf_counter()
+        # the ranks share this card: give them what this process's
+        # allocator holds unused (the phases before leave tens of GB)
+        torch.cuda.empty_cache()
         reports = distributed.launch(
             ["-i", inp, "-o", out, "--matcher", "chunked"], 2, timeout=300)
         if read(out) != want8:
@@ -2862,6 +3029,9 @@ def main() -> int:
 
     # ---- the JAX package's XLA matchers, against K1, and their routes ---
     _, xla_launches = drive_xla_matcher_path(a.seed)
+
+    # ---- K1's wide-window route against the sweep, timed -------------
+    drive_match_chain_path(a.seed)
 
     paths = (launches, m_launches, cli_launches, *conf_launches.values(),
              probe_launches, sh_launches, ex_launches, mh_launches,

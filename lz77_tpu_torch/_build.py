@@ -27,9 +27,9 @@ _ROOT = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "lz77_tpu_torch")
 
-KERNEL_SOURCES = ("match.cu", "match_chunk.cu", "parse_walk.cu",
-                  "pack_bits.cu", "decode_walk.cu", "decode_walk_packed.cu",
-                  "fused_walk.cu", "coissue.cu")
+KERNEL_SOURCES = ("match.cu", "match_chain.cu", "match_chunk.cu",
+                  "parse_walk.cu", "pack_bits.cu", "decode_walk.cu",
+                  "decode_walk_packed.cu", "fused_walk.cu", "coissue.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,9 @@ _KERNEL_ARGTYPES = {
     # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth,
     # d_lo, d_hi, stream
     "lz77_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # blocks, halos, rights, avails, valid_exts, L, O, gram, perm_a, perm_b,
+    # hist, D, counters, G, B, dlim, depth, budget, sort_tile, stream
+    "lz77_match_chain": [_P] * 13 + [_I] * 6 + [_P],
     # blocks, halos, rights, avails, valid_exts, L, O, G, B, dlim, depth, stream
     "lz77_match_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lox, entry, exit_map, cnt_map, entries, offsets, tokens, count, exit,

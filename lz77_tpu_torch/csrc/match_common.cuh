@@ -127,10 +127,19 @@ constexpr int GROUP = 8;
 // the first distance) to the step that holds dmax: the longest run (at most
 // cap >= 1) of the position at byte index xi and the nearest distance that
 // gives it: .x = run, .y = distance (0, 0 when nothing matches).  See the
-// note at the top; sweep_position and sweep_range below choose tf.
+// note at the top; sweep_position and sweep_range below choose tf.  The
+// sweep starts from the run best0 < cap at distance best_o0 found nearer
+// (0, 0 but for match_chain.cu's walk, which sweeps the distances its hop
+// budget left): only a longer run replaces it.  With `distinct`, the
+// second filter tests the last byte at or before index best that differs
+// from x[0] (any of bytes 0 .. best must match for a longer run): in a run
+// of one byte value x[best] often equals x[0], and then the filter passes
+// nearly every distance that the first one does.
 __device__ __forceinline__ int2 sweep_steps(const uint32_t* sw, int xi,
                                             int cap, int tf,
-                                            uint32_t first_mask, int dmax) {
+                                            uint32_t first_mask, int dmax,
+                                            int best0 = 0, int best_o0 = 0,
+                                            bool distinct = false) {
   const uint8_t* s = reinterpret_cast<const uint8_t*>(sw);
   const int a = xi & 3, w0 = xi >> 2;
   uint32_t X[XREG];  // the position's first bytes, read once
@@ -142,9 +151,22 @@ __device__ __forceinline__ int2 sweep_steps(const uint32_t* sw, int xi,
   const int lo = a + 4 * tmax - dmax;  // 0..3
   const uint32_t last_mask = 0xFFFFFFFFu << (8 * lo);
   const uint32_t c0s = (X[0] & 0xFFu) * 0x01010101u;  // x[0], four times
-  uint32_t cbs = c0s;                                 // x[best], four times
-  int best = 0, best_o = 0, bq = 0, bs = 0;  // bq, bs: best / 4, 8 (best % 4)
-  uint32_t up = sw[w0 - tf + 1];  // sw[w0 - t + bq + 1] at step t
+  // the second filter's byte index f <= best (best, or with `distinct`
+  // the last byte before it that differs from x[0])
+  auto second = [&](int b) -> int {
+    int f = b;
+    if (distinct) {
+      while (f > 0 && s[xi + f] == s[xi]) --f;
+      if (f == 0) f = b;
+    }
+    return f;
+  };
+  int best = best0, best_o = best_o0;
+  const int f0 = second(best0);
+  // x[f], four times
+  uint32_t cbs = best0 ? s[xi + f0] * 0x01010101u : c0s;
+  int bq = f0 >> 2, bs = 8 * (f0 & 3);  // f / 4, 8 (f % 4)
+  uint32_t up = sw[w0 - tf + bq + 1];  // sw[w0 - t + bq + 1] at step t
 
   // The filter word of step t: a zero byte j, that distance matches x[0]
   // at index 0 and x[best] at index best.
@@ -169,9 +191,10 @@ __device__ __forceinline__ int2 sweep_steps(const uint32_t* sw, int xi,
         if (best == cap) return true;
       }
     } while (m);
-    cbs = s[xi + best] * 0x01010101u;
-    bq = best >> 2;
-    bs = 8 * (best & 3);
+    const int f = second(best);
+    cbs = s[xi + f] * 0x01010101u;
+    bq = f >> 2;
+    bs = 8 * (f & 3);
     up = sw[w0 - last + bq];
     return false;
   };
@@ -220,14 +243,18 @@ __device__ __forceinline__ int2 sweep_position(const uint32_t* sw, int xi,
 // Distances dmin .. dmax (dmin >= 1; (0, 0) when dmax < dmin): the first
 // step is tf = (dmin + 2 - a) / 4, the last whose bytes are not all at or
 // above dmin, and only its k = a + 4 tf - dmin + 1 (0..3) lowest bytes are
-// (for dmin = 1 that is step 0 with k = a: sweep_position).
+// (for dmin = 1 that is step 0 with k = a: sweep_position).  best0,
+// best_o0 and distinct as in sweep_steps.
 __device__ __forceinline__ int2 sweep_range(const uint32_t* sw, int xi,
-                                            int cap, int dmin, int dmax) {
-  if (dmax < dmin) return make_int2(0, 0);
+                                            int cap, int dmin, int dmax,
+                                            int best0 = 0, int best_o0 = 0,
+                                            bool distinct = false) {
+  if (dmax < dmin) return make_int2(best0, best_o0);
   const int a = xi & 3;
   const int tf = (dmin + 2 - a) >> 2;
   const int k = a + 4 * tf - dmin + 1;
-  return sweep_steps(sw, xi, cap, tf, (1u << (8 * k)) - 1u, dmax);
+  return sweep_steps(sw, xi, cap, tf, (1u << (8 * k)) - 1u, dmax, best0,
+                     best_o0, distinct);
 }
 
 }  // namespace lz77

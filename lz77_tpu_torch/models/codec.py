@@ -101,6 +101,13 @@ class EncodeStats:
     # other than 0), whose first byte was OR-ed into the stream's last.  0
     # at every token width that is a byte multiple.
     seams: int = 0
+    # Fused pipeline, K1's wide-window route (``ops.match.takes_chain``):
+    # the positions that walked earlier equal 4-grams, the hops they took,
+    # and those that passed the hop budget and swept the rest.  0 where
+    # the route is not taken.
+    match_positions: int = 0
+    match_hops: int = 0
+    match_fallbacks: int = 0
     phases: metrics_lib.PhaseTimes = dataclasses.field(
         default_factory=metrics_lib.PhaseTimes
     )

@@ -86,6 +86,7 @@ def encode_batch_walk(
     sb: int,
     sub_block: int = parse_walk.DEFAULT_SUB_BLOCK,
     matcher: str = match_ops.DEFAULT_MATCHER,
+    counters=None,
     device: str | torch.device | None = None,
 ):
     """One fused device step over a batch of consecutive blocks, at any
@@ -100,7 +101,9 @@ def encode_batch_walk(
     and exit_phase are (1,) int32 tensors that stay on the device, so the
     next batch can take ``exit_entry`` and ``exit_phase`` as its ``entry0``
     and ``phase0`` without a host round trip.  ``matcher`` names the match
-    tables' finder (``ops.match.get_matcher``; K1 by default).
+    tables' finder (``ops.match.get_matcher``; K1 by default); ``counters``
+    (``ops.match.new_counters``), given with K1 only, gets its wide-window
+    route's counts added.
     """
     params = spec.Params(la=la, sb=sb)
     dev = device_lib.resolve(device)
@@ -116,6 +119,7 @@ def encode_batch_walk(
     L, O = match_ops.get_matcher(matcher)(
         blocks, prep(halos, torch.uint8), rights, prep(avails, torch.int32),
         prep(valid_exts, torch.int32), la=la, sb=sb,
+        **({} if counters is None else {"counters": counters}),
     )
     lox = parse_walk.build_lox(
         L.reshape(N), O.reshape(N), blocks.reshape(N), rights[G - 1], la
@@ -431,6 +435,11 @@ def iter_batches_fused(
     width = params.width
     B, G = block_size, batch_blocks
     H, R = params.d_limit, params.len_limit
+    # K1's wide-window route counts its walk on the device; the counts ride
+    # in each batch's (total, exit) fetch
+    counted = (parser == "walk" and stats is not None
+               and match_ops.route_matcher(matcher) == "sweep"
+               and match_ops.takes_chain(H))
     nblocks = -(-n // B)
     num_batches = -(-nblocks // G)
     if phases is None and stats is not None:
@@ -466,12 +475,16 @@ def iter_batches_fused(
                 span = (tr.upload(bi % 2, size) if cuda
                         else torch.from_numpy(buf))
             with profiling.annotate("encode.launch", stats):
+                counters = match_ops.new_counters(dev) if counted else None
                 payload, _, total, exit_entry, *exit_phase = step(
                     *rows_from_span(span, gn, B, H, R), vt, entry_dev,
                     *((phase_dev,) if parser == "walk" else ()),
                     la=params.la, sb=params.sb, device=dev,
+                    **({"counters": counters} if counted else {}),
                 )
-                pair = torch.cat([total, exit_entry])
+                # the counters' int64 words as int32 halves
+                pair = torch.cat([total, exit_entry] + (
+                    [counters.view(torch.int32)] if counted else []))
                 done = tr.done() if cuda else None
             if stats is not None:
                 stats.h2d_bytes += size
@@ -487,16 +500,22 @@ def iter_batches_fused(
             bi, payload, pair, done, _ = handle
             with metrics_lib.StopwatchPhase(ph, "match"):
                 with profiling.annotate("encode.wait", stats):
-                    tot, ex = (tr.scalars(pair, done) if cuda
-                               else pair.tolist())
+                    tot, ex, *halves = (tr.scalars(pair, done) if cuda
+                                        else pair.tolist())
                 bits = phase_host + tot * width
                 nbytes = -(-bits // 8)
                 with profiling.annotate("encode.fetch", stats):
                     buf = (tr.fetch(payload, nbytes) if cuda
                            else memoryview(payload[:nbytes].numpy()))
                 if stats is not None:
-                    stats.d2h_bytes += nbytes + 8
+                    stats.d2h_bytes += nbytes + 4 * len(pair)
                     stats.seams += phase_host != 0
+                if halves:
+                    walked, hops, fell = np.array(
+                        halves, np.int32).view(np.int64).tolist()
+                    stats.match_positions += walked
+                    stats.match_hops += hops
+                    stats.match_fallbacks += fell
             phase_host = bits & 7
             return bi, e_in, ex, tot, buf
 

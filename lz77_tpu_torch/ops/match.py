@@ -45,6 +45,17 @@ ranged sweep starts at the word step that holds ``d_lo`` (masked below it
 as step 0 is masked below 1) and stages only the ``d_hi - 1`` window bytes
 it can reach; the full range runs the unranged code that K5 shares.
 
+At the wide windows (``d_limit >= CHAIN_MIN_DLIM``, :func:`takes_chain`)
+an unranged call takes another route to the same tables,
+``csrc/match_chain.cu``: a pre-pass gives every position of a block's span
+the distance to the nearest earlier equal k-gram, k = 1..4 (four stable
+counting-sort passes), and a walk follows the 4-gram links nearest first,
+measuring only the candidates that can still beat the best run; a position
+whose walk passes :func:`chain_budget` hops sweeps the rest of its
+distances with the sweep above.  The sweep pays ``d_limit / 4`` word steps
+a position whatever the data, the walk one hop an earlier equal gram.
+:func:`match_chain_plain` is the route in tensors.
+
 Beside K1 this module holds three of the JAX package's XLA matchers,
 ``find_matches_brute`` (and its ranged form), ``find_matches_sorted`` and
 ``find_matches_chunked``, as plain tensor code; the fourth,
@@ -293,6 +304,250 @@ def check_batch(blocks, halos, rights, avails, valid_exts, dlim: int,
         raise ValueError("a match kernel takes at most 65535 blocks per batch")
 
 
+# ------------------------------------------- K1 at the wide windows -----
+#
+# The route ``csrc/match_chain.cu`` takes, and its plain version.
+
+# The smallest d_limit whose unranged calls take the walk: below it the
+# sweep's d_limit / 4 steps cost less than the pre-pass's launches.
+CHAIN_MIN_DLIM = 1 << 14
+# A position's hop budget as a share of the sweep's d_limit / 4 word steps:
+# past it the sweep costs less than the walk (measured on an H100 over the
+# benchmark's file classes at shares 1/32 to 1/2).
+CHAIN_BUDGET_SHARE = 1 / 16
+# Elements a thread block of the pre-pass's sort takes (a multiple of 256).
+CHAIN_SORT_TILE = 4096
+# The k-gram tables' largest distance (uint16; 0 means none within it).
+LINK_MAX = 65535
+
+
+def takes_chain(dlim: int, d_lo: int = 1, d_hi: int | None = None) -> bool:
+    """Whether a call searching the distances ``[d_lo, d_hi)`` at ``dlim``
+    takes the walk over equal 4-grams: an unranged call at a wide window.
+    A ranged call (the sharded window axis) always sweeps."""
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
+    return dlim >= CHAIN_MIN_DLIM and d_lo <= 1 and d_hi > dlim
+
+
+def chain_budget(dlim: int) -> int:
+    """Hops a position may take before it sweeps the rest of its
+    distances."""
+    return int(dlim // 4 * CHAIN_BUDGET_SHARE)
+
+
+def new_counters(device) -> torch.Tensor:
+    """The route's three counters, zeroed: positions walked, hops, and
+    positions that passed the hop budget (int64, on ``device``)."""
+    return torch.zeros(3, dtype=torch.int64, device=device)
+
+
+def gram_links(blocks: torch.Tensor, halos: torch.Tensor,
+               rights: torch.Tensor) -> torch.Tensor:
+    """(4, G, N) int64, N = H + B + R: row k-1 gives each span index t
+    (halo | block | right extension) the distance to the nearest earlier t
+    with the same k-gram (bytes past the span read 0), 0 where there is
+    none within ``LINK_MAX``.  Stable sorts of the grams, as
+    :func:`find_matches_sorted` takes them."""
+    G = blocks.shape[0]
+    buf = torch.cat([halos, blocks, rights], dim=1).to(torch.int64)
+    N = buf.shape[1]
+    pad = F.pad(buf, (0, 3))
+    gram = (pad[:, :N] | pad[:, 1 : N + 1] << 8 | pad[:, 2 : N + 2] << 16
+            | pad[:, 3 : N + 3] << 24)
+    seg = torch.arange(G, device=buf.device)[:, None] << 32
+    out = torch.zeros((4, G * N), dtype=torch.int64, device=buf.device)
+    for k in range(1, 5):
+        key = ((gram & ((1 << 8 * k) - 1)) | seg).reshape(-1)
+        skey, perm = torch.sort(key, stable=True)
+        d = perm[1:] - perm[:-1]
+        out[k - 1, perm[1:]] = torch.where(
+            (skey[1:] == skey[:-1]) & (d <= LINK_MAX), d, 0)
+    return out.reshape(4, G, N)
+
+
+def _common_runs(buf: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 cap: torch.Tensor) -> torch.Tensor:
+    """Common prefix of the bytes of flat ``buf`` from ``a`` and from
+    ``b``, at most ``cap`` (1-D, per pair), 16 bytes a round while a run
+    lasts."""
+    run = torch.zeros_like(a)
+    live = torch.arange(a.numel(), device=a.device)
+    step = torch.arange(16, device=a.device)
+    while live.numel():
+        r = run[live]
+        eq = buf[(a[live] + r)[:, None] + step] == buf[(b[live] + r)[:, None]
+                                                          + step]
+        first = torch.where(eq.all(1), 16, (~eq).to(torch.int8).argmax(1))
+        run[live] = r + first
+        live = live[(first == 16) & (r + 16 < cap[live])]
+    return torch.minimum(run, cap)
+
+
+# Pairs (position, distance) a round of the plain fallback sweep takes, by
+# device type.
+CHAIN_PLAIN_PAIRS = {"cpu": 1 << 21, "cuda": 1 << 23}
+
+
+def _sweep_rest_plain(buf, a, cap, dmin, dmax, best, bo):
+    """The fallback of :func:`match_chain_plain`: for positions at flat
+    index ``a`` of ``buf``, the distances ``dmin .. dmax`` in turn against
+    the best run so far, a longer run replacing it (so the nearest of the
+    longest wins), until the cap.  Returns the new (best, bo).  A round
+    takes the next distances of every position still short of its cap, at
+    most ``CHAIN_PLAIN_PAIRS`` pairs in all, 16 a position at first and
+    twice as many each round (a run that reaches the cap near ``dmin``
+    measures few others)."""
+    best, bo, d0 = best.clone(), bo.clone(), dmin.clone()
+    pairs = CHAIN_PLAIN_PAIRS.get(a.device.type, 1 << 21)
+    live = ((d0 <= dmax) & (best < cap)).nonzero()[:, 0]
+    width = 16
+    while live.numel():
+        width = max(1, min(2 * width, pairs // live.numel()))
+        cnt = torch.clamp(dmax[live] - d0[live] + 1, max=width)
+        who = torch.repeat_interleave(live, cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        d = d0[who] + torch.arange(who.numel(), device=a.device) \
+            - torch.repeat_interleave(first, cnt)
+        pa, b0 = a[who], best[who]
+        src = pa - d
+        ok = (buf[pa] == buf[src]) & (buf[pa + b0] == buf[src + b0])
+        who, d, pa, src, b0 = who[ok], d[ok], pa[ok], src[ok], b0[ok]
+        run = _common_runs(buf, pa, src, cap[who])
+        win = run > b0
+        who, d, run = who[win], d[win], run[win]
+        # the longest run, then the nearest distance: one key's max
+        key = run * (LINK_MAX + 2) + (LINK_MAX + 1 - d)
+        top = torch.full_like(best, -1)
+        top.scatter_reduce_(0, who, key, "amax")
+        got = top >= 0
+        best = torch.where(got, top // (LINK_MAX + 2), best)
+        bo = torch.where(got, LINK_MAX + 1 - top % (LINK_MAX + 2), bo)
+        d0[live] += cnt
+        live = live[(d0[live] <= dmax[live]) & (best[live] < cap[live])]
+    return best, bo
+
+
+def _sparsest_chain(D4: torch.Tensor, q: torch.Tensor, b: torch.Tensor):
+    """The chain a walk follows once candidate ``q`` (flat index into
+    ``D4``) has set the best run ``b`` (>= 4 where it is used): the offset
+    j among ``b - 4``, ``2 (b - 4) / 3``, ``(b - 4) / 3`` and 0 whose link
+    ``D4[q + j]`` is longest (0, none within ``LINK_MAX``, counts longest;
+    the first of equals), and that link."""
+    m = torch.clamp(b - 4, min=0)
+    js = torch.stack([m, 2 * m // 3, m // 3, torch.zeros_like(m)], 1)
+    links = D4[q[:, None] + js]
+    pick = torch.where(links == 0, LINK_MAX + 1, links).argmax(1,
+                                                                 keepdim=True)
+    return js.gather(1, pick)[:, 0], links.gather(1, pick)[:, 0]
+
+
+def match_chain_plain(
+    blocks: torch.Tensor,
+    halos: torch.Tensor,
+    rights: torch.Tensor,
+    avails: torch.Tensor,
+    valid_exts: torch.Tensor,
+    *,
+    la: int,
+    sb: int,
+    budget: int | None = None,
+    counters: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the wide-window route: the unranged
+    sweep's (L, O) by ``csrc/match_chain.cu``'s steps.
+
+    The k-gram tables from :func:`gram_links`; per position with cap >= 1
+    the short run (the largest k <= min(cap, 3) whose table lies within the
+    limit ``min(d_limit, p + avail)``, at that distance); where cap >= 4
+    and the 4-gram's link lies within the limit, the walk, one hop a round
+    for every position still walking: the next link of the current node,
+    its candidate ``node - off`` (stop beyond the limit), its byte ``best``
+    tested and, where it matches, its run measured; a strictly longer run
+    becomes the best and moves the node to ``candidate + off``, ``off`` the
+    offset in the run whose chain is sparsest (:func:`_sparsest_chain`).
+    A walk ends at the cap or the chain's end; one that would take a hop
+    more than ``budget`` (default :func:`chain_budget`) sweeps the
+    distances from that hop's on, seeded with its best.
+    ``counters`` (:func:`new_counters`), if given, gets the positions
+    walked, the hops and the fallbacks added, as the kernel adds them.
+    """
+    G, B = blocks.shape
+    depth = spec.len_limit(la)
+    dlim = spec.d_limit(sb)
+    H = halos.shape[1]
+    if budget is None:
+        budget = chain_budget(dlim)
+    dev = blocks.device
+    D = gram_links(blocks, halos, rights)
+    N = D.shape[2]
+    S = N + 32  # a row of the flat byte buffer: the span and zeros
+    buf = F.pad(torch.cat([halos, blocks, rights], dim=1),
+                (0, S - N)).reshape(-1).to(torch.int64)
+    pos = torch.arange(B, device=dev)[None, :]
+    cap = torch.clamp(valid_exts[:, None].to(torch.int64) - pos - 1,
+                      max=depth)
+    lim = torch.clamp(pos + avails[:, None].to(torch.int64), max=dlim)
+    best = torch.zeros((G, B), dtype=torch.int64, device=dev)
+    bo = torch.zeros_like(best)
+    go = (cap > 0) & (lim > 0)
+    for k in range(1, 4):
+        d = D[k - 1][:, H : H + B]
+        go = go & (cap >= k) & (d > 0) & (d <= lim)
+        best = torch.where(go, k, best)
+        bo = torch.where(go, d, bo)
+    D4 = D[3].reshape(-1)
+    dl0 = D[3][:, H : H + B]
+    walk = (cap >= 4) & (dl0 > 0) & (dl0 <= lim)
+    # the walking positions, flat: their (G, B) index, span row offsets
+    at = walk.reshape(-1).nonzero()[:, 0]
+    gi = at // B
+    P = at % B + H
+    rowS, rowN = gi * S, gi * N
+    c, li = cap.reshape(-1)[at], lim.reshape(-1)[at]
+    bst, bd = best.reshape(-1)[at].clone(), bo.reshape(-1)[at].clone()
+    node, off, dl = P.clone(), torch.zeros_like(P), dl0.reshape(-1)[at]
+    hops = torch.zeros_like(P)
+    fell = torch.zeros(0, dtype=torch.int64, device=dev)
+    fell_d = torch.zeros_like(fell)
+    live = torch.arange(at.numel(), device=dev)
+    while live.numel():
+        nnode = node[live] - dl[live]
+        dist = P[live] - nnode + off[live]
+        on = dist <= li[live]
+        cut = on & (hops[live] == budget)
+        fell = torch.cat([fell, live[cut]])
+        fell_d = torch.cat([fell_d, dist[cut]])
+        keep = on & ~cut
+        live, nnode, dist = live[keep], nnode[keep], dist[keep]
+        hops[live] += 1
+        node[live] = nnode
+        b0 = bst[live]
+        xp = rowS[live] + P[live]
+        hit = buf[xp - dist + b0] == buf[xp + b0]
+        run = torch.zeros_like(dist)
+        run[hit] = _common_runs(buf, xp[hit], xp[hit] - dist[hit],
+                                c[live][hit])
+        up = run > b0
+        bst[live] = torch.where(up, run, b0)
+        bd[live] = torch.where(up, dist, bd[live])
+        j, lj = _sparsest_chain(D4, rowN[live] + P[live] - dist, bst[live])
+        off[live] = torch.where(up, j, off[live])
+        node[live] = torch.where(up, P[live] - dist + off[live], node[live])
+        nd = torch.where(up, lj, D4[rowN[live] + node[live]])
+        dl[live] = nd
+        live = live[~(up & (bst[live] == c[live])) & (nd > 0)]
+    if fell.numel():
+        bst[fell], bd[fell] = _sweep_rest_plain(
+            buf, rowS[fell] + P[fell], c[fell], fell_d, li[fell], bst[fell],
+            bd[fell])
+    best.view(-1)[at] = bst
+    bo.view(-1)[at] = bd
+    if counters is not None:
+        counters += torch.tensor([at.numel(), int(hops.sum()), fell.numel()],
+                                 dtype=torch.int64, device=counters.device)
+    return best.to(torch.int32), bo.to(torch.int32)
+
+
 def match_sweep(
     blocks: torch.Tensor,      # (G, B) uint8
     halos: torch.Tensor,       # (G, d_limit) uint8
@@ -304,14 +559,20 @@ def match_sweep(
     sb: int,
     d_lo: int = 1,
     d_hi: int | None = None,
+    counters: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 wrapper: (L, O) int32 (G, B) tables for a batch of blocks.
 
     Only the distances ``[d_lo, d_hi)`` are searched (default: all of
     ``1..d_limit``; clipped by :func:`distance_range`): the longest run in
     the range, its nearest distance, (0, 0) where nothing in it matches.
-    CUDA tensors launch ``match_kernel`` (or raise); CPU tensors run
-    :func:`match_sweep_plain`.  ``match_sweep.launches`` counts launches.
+    Where :func:`takes_chain` (an unranged call at ``d_limit >=
+    CHAIN_MIN_DLIM``) CUDA tensors launch ``csrc/match_chain.cu``'s route
+    and CPU tensors run :func:`match_chain_plain`, adding to ``counters``
+    (:func:`new_counters`) if given; otherwise CUDA tensors launch
+    ``match_kernel`` (or raise) and CPU tensors run
+    :func:`match_sweep_plain`.  ``match_sweep.launches`` counts calls that
+    launched.
     """
     depth = spec.len_limit(la)
     dlim = spec.d_limit(sb)
@@ -321,27 +582,78 @@ def match_sweep(
     if dlim == 0 or depth == 0 or G * B == 0 or d_lo == d_hi:
         z = torch.zeros((G, B), dtype=torch.int32, device=blocks.device)
         return z, z.clone()
+    args = (blocks, halos, rights, avails, valid_exts)
+    chain = takes_chain(dlim, d_lo, d_hi)
     if not blocks.is_cuda:
-        return match_sweep_plain(
-            blocks, halos, rights, avails, valid_exts, la=la, sb=sb,
-            d_lo=d_lo, d_hi=d_hi,
-        )
-    lib = _build.kernels()
-    L = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
-    O = torch.empty((G, B), dtype=torch.int32, device=blocks.device)
-    with torch.cuda.device(blocks.device):
-        err = lib.lz77_match(
-            blocks.data_ptr(), halos.data_ptr(), rights.data_ptr(),
-            avails.data_ptr(), valid_exts.data_ptr(),
-            L.data_ptr(), O.data_ptr(), G, B, dlim, depth, d_lo, d_hi,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "match_kernel")
+        if chain:
+            return match_chain_plain(*args, la=la, sb=sb, counters=counters)
+        return match_sweep_plain(*args, la=la, sb=sb, d_lo=d_lo, d_hi=d_hi)
+    if chain:
+        L, O = chain_kernel(*args, la=la, sb=sb, counters=counters)
+    else:
+        L, O = sweep_kernel(*args, la=la, sb=sb, d_lo=d_lo, d_hi=d_hi)
     match_sweep.launches += 1
     return L, O
 
 
 match_sweep.launches = 0
+
+
+def _tables(blocks):
+    G, B = blocks.shape
+    return (torch.empty((G, B), dtype=torch.int32, device=blocks.device),
+            torch.empty((G, B), dtype=torch.int32, device=blocks.device))
+
+
+def sweep_kernel(blocks, halos, rights, avails, valid_exts, *, la: int,
+                 sb: int, d_lo: int = 1, d_hi: int | None = None):
+    """``match_kernel``'s distance sweep over ``[d_lo, d_hi)`` on CUDA
+    tensors, whatever the window (:func:`match_sweep` routes)."""
+    dlim = spec.d_limit(sb)
+    d_lo, d_hi = distance_range(dlim, d_lo, d_hi)
+    G, B = blocks.shape
+    L, O = _tables(blocks)
+    with torch.cuda.device(blocks.device):
+        err = _build.kernels().lz77_match(
+            blocks.data_ptr(), halos.data_ptr(), rights.data_ptr(),
+            avails.data_ptr(), valid_exts.data_ptr(),
+            L.data_ptr(), O.data_ptr(), G, B, dlim, spec.len_limit(la),
+            d_lo, d_hi, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "match_kernel")
+    return L, O
+
+
+def chain_kernel(blocks, halos, rights, avails, valid_exts, *, la: int,
+                 sb: int, budget: int | None = None,
+                 counters: torch.Tensor | None = None):
+    """``csrc/match_chain.cu``'s route (the unranged tables) on CUDA
+    tensors, whatever the window; ``budget`` and ``counters`` as in
+    :func:`match_chain_plain`.  Its scratch, about 32 B a span byte, comes
+    from the caching allocator."""
+    dlim = spec.d_limit(sb)
+    depth = spec.len_limit(la)
+    G, B = blocks.shape
+    N = dlim + B + depth
+    dev = blocks.device
+    L, O = _tables(blocks)
+    gram = torch.empty((G, N), dtype=torch.int32, device=dev)
+    perm = torch.empty((2, G, N), dtype=torch.int32, device=dev)
+    hist = torch.empty((G, 256, -(-N // CHAIN_SORT_TILE)), dtype=torch.int32,
+                       device=dev)
+    D = torch.empty((4, G, N), dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.kernels().lz77_match_chain(
+            blocks.data_ptr(), halos.data_ptr(), rights.data_ptr(),
+            avails.data_ptr(), valid_exts.data_ptr(), L.data_ptr(),
+            O.data_ptr(), gram.data_ptr(), perm[0].data_ptr(),
+            perm[1].data_ptr(), hist.data_ptr(), D.data_ptr(),
+            None if counters is None else counters.data_ptr(), G, B, dlim,
+            depth, chain_budget(dlim) if budget is None else budget,
+            CHAIN_SORT_TILE, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "match_kernel (walk)")
+    return L, O
 
 # -------------------------------------------------- the XLA matchers -----
 #

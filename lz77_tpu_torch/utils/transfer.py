@@ -118,7 +118,7 @@ class Transfer:
         self._staging = [None, None]
         self._staged = [torch.cuda.Event(), torch.cuda.Event()]
         self._fetch = None
-        self._scalars = torch.empty(2, dtype=torch.int32, pin_memory=True)
+        self._scalars = torch.empty(8, dtype=torch.int32, pin_memory=True)
         self._fetched = torch.cuda.Event()
         # page-locked buffers this set has allocated
         self.allocations = 1
@@ -172,12 +172,13 @@ class Transfer:
         self._fetched.synchronize()
 
     def scalars(self, pair: torch.Tensor, done: torch.cuda.Event):
-        """The two int32 values of ``pair`` (on the device), copied on the
-        copy stream once ``done`` has passed: the host waits for that
+        """The int32 values of ``pair`` (on the device, at most 8), copied
+        on the copy stream once ``done`` has passed: the host waits for that
         batch, not for what the compute stream took after it."""
         self.stream.wait_event(done)
-        self._copy_out(self._scalars, pair)
-        return self._scalars.tolist()
+        out = self._scalars[: pair.numel()]
+        self._copy_out(out, pair)
+        return out.tolist()
 
     def fetch(self, src: torch.Tensor, nbytes: int) -> memoryview:
         """The first ``nbytes`` of ``src`` (uint8 on the device, ready:
