@@ -22,10 +22,12 @@ launch counts set to 0 just before and read just after:
   8 MiB, the fused pipeline on files, and the packed-word decode through
   its public function; every stream equal to the native encoder's and every
   decoded file equal to its input;
-* the merged path: ``encode_bytes_fused(parser="merged")`` of the same
-  input, one launch of the merged sweep+walk kernel a batch and none of the
-  match sweep or the walk parse; the stream equal to the native encoder's
-  and to the walk route's, and decoded back;
+* the batch steps: K5 (``fused_walk.encode_batch_sweepwalk``) and the
+  scan step (``fused.encode_batch_device``) each chained over the same
+  input (``step_stream``): one launch of the merged sweep+walk kernel a
+  batch and none of the match sweep or the walk parse; one match sweep a
+  batch for the scan step and no other codec kernel; each stream equal to
+  the native encoder's;
 * the co-issue probe: ``experiments.coissue.probe()`` at the experiment's
   own sizes, its four kernels (X-V, X-S, X-F, X-Q: one thread block on one
   SM each), its JSON line printed with the experiment's verdict;
@@ -80,8 +82,9 @@ launch counts set to 0 just before and read just after:
   zeros, random bytes and a run across a block boundary.  Every codec
   kernel (K1 full and over a 2-member window split, K2, K3 whole and
   primed, K4, K5, K6) is first held against its plain version at every
-  point; then, counts zeroed, every encode route (fused walk / merged /
-  scan where the width is byte-aligned, else their ValueError; the host
+  point; then, counts zeroed, every encode route (the fused walk; K5 and
+  the scan step chained where the width is byte-aligned, else their
+  ValueError; the host
   pipeline with both matchers; a 2x2 mesh on the card) gives
   ``native.encode``'s stream and every decode route (``decompress``, the
   chunked, host and native backends, the packed decode, the streamed
@@ -125,8 +128,8 @@ unranged K1; at the main path's shapes too: every member of splits of 2
 and 4 on the 8 MiB text batch, and the one-block shards of the 4x2 mesh.
 K1's record carries each member's time at the main shape (``ranged_ms``).
 
-The plain tensor modules (the scan parser, the chunked decoder) run on the
-card on the first 8 MiB and are held against the same references.
+The chunked decoder (plain tensor code) runs on the card on the first
+8 MiB and is held against the same references.
 
 The probe's kernels are held against their plain versions: V, F (k 8)
 and Q from a random slab and from one-hot slabs (a word at the corners and
@@ -267,7 +270,9 @@ LIBRARY_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
 CLI_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                     "walk_decode_kernel", "match_chunk_kernel",
                     "decode_packed_kernel")
-MERGED_PATH_KERNELS = ("sweepwalk_kernel", "walk_decode_kernel")
+# the batch steps chained by ``step_stream``: the one codec kernel each
+# launches, once a batch
+STEP_PATH_KERNEL = {"merged": "sweepwalk_kernel", "scan": "match_kernel"}
 CONFORMANCE_PATH_KERNELS = ("match_kernel", "walk_parse_pack_kernel",
                             "walk_decode_kernel")
 PROBE_PATH_KERNELS = ("coissue_v_kernel", "coissue_s_kernel",
@@ -1460,6 +1465,27 @@ def drive_sharded_path(data: bytes, ref_stream: bytes, tmp: str):
     return rec, total
 
 
+def step_stream(step, x: np.ndarray, p: spec.Params, B: int, G: int) -> bytes:
+    """A fused batch step (``fused_walk.encode_batch_sweepwalk`` or
+    ``fused.encode_batch_device``) over every batch of ``x`` on the card,
+    as the pipeline cuts them (the last batch its real blocks only), the
+    exit entry carried as the device tensor, each batch's ``total * width /
+    8`` payload bytes after the header: the stream."""
+    n = x.shape[0]
+    nblocks = -(-n // B)
+    out = bytearray(bitio.header_bytes(p))
+    entry = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for g0 in range(0, nblocks, G):
+        gn = min(G, nblocks - g0)
+        arrs = codec._batch_inputs(x, n, g0, gn, gn, B, p.d_limit,
+                                   p.len_limit)
+        payload, _, total, entry = step(
+            *arrs, min(gn * B, n - g0 * B), entry, la=p.la, sb=p.sb,
+            device="cuda")
+        out += payload[: int(total) * p.width // 8].cpu().numpy().tobytes()
+    return bytes(out)
+
+
 def exact_rows_stream(step, x: np.ndarray, p: spec.Params, B: int, G: int,
                       unpack_ms: list | None = None):
     """``make_sharded_exact_step`` over every batch of ``x`` from entry 0,
@@ -1780,8 +1806,8 @@ def drive_big_runs(work: str, gb: float) -> dict:
 
 
 def profile_summary(profile_dir: str, name: str):
-    """Device time by kernel and the device's idle share of one traced
-    region, from the numbers ``utils.profiling.trace`` wrote."""
+    """Device time by kernel of one traced region, from the numbers
+    ``utils.profiling.trace`` wrote."""
     with open(os.path.join(profile_dir, name, "key_averages.json")) as f:
         d = json.load(f)
     rows = sorted((r for r in d["rows"]
@@ -1790,7 +1816,6 @@ def profile_summary(profile_dir: str, name: str):
     busy = sum(r["self_device_us"] for r in rows)
     return {
         "call": name, "wall_ms": d["wall_us"] / 1e3, "device_ms": busy / 1e3,
-        "device_idle_share": 1 - busy / d["wall_us"],
         "by_kernel": [{"name": r["name"][:80], "calls": r["calls"],
                        "device_ms": r["self_device_us"] / 1e3}
                       for r in rows[:20]],
@@ -1804,8 +1829,6 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
         lt.compress(data)
     with profiling.trace(os.path.join(pdir, "library_decompress")):
         lt.decompress(stream)
-    with profiling.trace(os.path.join(pdir, "merged_encode")):
-        fused.encode_bytes_fused(data, parser="merged")
     with profiling.trace(os.path.join(pdir, "sharded_encode_4x2")):
         sharded.encode_bytes_sharded(data, mesh=card_mesh(4, 2))
     inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out.lz")
@@ -1821,8 +1844,8 @@ def profile_paths(data: bytes, stream: bytes, tmp: str, pdir: str):
     for name, argv in calls.items():
         run_cli(argv + ["--profile", os.path.join(pdir, name)])
     return [profile_summary(pdir, name) for name in
-            ("library_compress", "library_decompress", "merged_encode",
-             "sharded_encode_4x2", *calls)]
+            ("library_compress", "library_decompress", "sharded_encode_4x2",
+             *calls)]
 
 
 # ------------------------------------------------------------- edges -----
@@ -1886,10 +1909,10 @@ def edge_kernel_checks(x: np.ndarray, B: int, p: spec.Params) -> list:
 
 def edge_routes(data: bytes, p: spec.Params, B: int, tmp: str) -> dict:
     """Every encode route at one grid point, each stream equal to
-    ``native.encode``'s (the fused walk at every width, the merged and scan
-    parsers only where the width is byte-aligned, elsewhere their
-    ValueError), and every decode route giving the input back; returns the
-    count of checks by route."""
+    ``native.encode``'s (the fused walk at every width, K5 and the scan
+    step chained by ``step_stream`` only where the width is byte-aligned,
+    elsewhere their ValueError), and every decode route giving the input
+    back; returns the count of checks by route."""
     want = native.encode(data, p)
     checks = {}
 
@@ -1899,14 +1922,17 @@ def edge_routes(data: bytes, p: spec.Params, B: int, tmp: str) -> dict:
                                  f"sb {p.sb}")
         checks[route] = checks.get(route, 0) + 1
 
-    for parser in fused.PARSERS:
-        if parser == "walk" or bitio.byte_aligned(p):
-            held(f"fused_{parser}", fused.encode_bytes_fused(
-                data, p, block_size=B, parser=parser) == want)
+    held("fused_walk", fused.encode_bytes_fused(data, p, block_size=B)
+         == want)
+    x = np.frombuffer(data, np.uint8)
+    for name, step in (("merged", fused_walk.encode_batch_sweepwalk),
+                       ("scan", fused.encode_batch_device)):
+        got = edges.outcome(step_stream, step, x, p, B,
+                            fused.DEFAULT_BATCH_BLOCKS)
+        if bitio.byte_aligned(p):
+            held(f"fused_{name}", got == want)
         else:
-            got = edges.outcome(fused.encode_bytes_fused, data, p,
-                                block_size=B, parser=parser)
-            held(f"fused_{parser}_refused", got == (
+            held(f"fused_{name}_refused", got == (
                 "ValueError",
                 "fused pipeline requires byte-aligned token width"))
     for matcher in ("sweep", "chunk"):
@@ -2896,60 +2922,36 @@ def main() -> int:
     emit({"main_path": {
         "la": p0.la, "sb": p0.sb, "input_bytes": len(data),
         "stream_bytes": len(stream), "tokens": st.tokens, "batches": batches,
-        "encode_s": enc_s, "encode_MB_s": len(data) / enc_s / 1e6,
-        "decode_s": dec_s, "decode_MB_s": len(data) / dec_s / 1e6,
-        "phases": st.phases.as_dict(), "h2d_bytes": st.h2d_bytes,
-        "d2h_bytes": st.d2h_bytes, "peak_device_bytes": peak,
+        "encode_s": enc_s, "decode_s": dec_s, "phases": st.phases.as_dict(),
+        "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
+        "peak_device_bytes": peak,
         "launches": launches, "stream_equals_native": True,
         "roundtrip": True, "native_decode": True,
     }})
 
-    # ---- the merged path, once: one kernel a batch, no sweep, no walk ----
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    stm = codec.EncodeStats()
-    t0 = time.perf_counter()
-    merged = fused.encode_bytes_fused(data, p0, parser="merged", stats=stm)
-    torch.cuda.synchronize()
-    menc_s = time.perf_counter() - t0
-    mback = lt.decompress(merged)
-    m_launches = read_counts(MERGED_PATH_KERNELS, "the merged path")
-    if (m_launches["sweepwalk_kernel"] != batches
-            or m_launches["match_kernel"]
-            or m_launches["walk_parse_pack_kernel"]):
-        raise AssertionError(f"merged path launched {m_launches}")
-    if merged != ref_stream or merged != stream:
-        raise AssertionError("merged stream differs from native / walk route")
-    if mback != data:
-        raise AssertionError("decompress(merged stream) != x")
-    # both routes in turns, on this card, for the comparison
-    turns = {"walk": [], "merged": []}
-    for parser in ("walk", "merged", "merged", "walk"):
-        t0 = time.perf_counter()
-        fused.encode_bytes_fused(data, p0, parser=parser)
-        torch.cuda.synchronize()
-        turns[parser].append(time.perf_counter() - t0)
-    emit({"merged_path": {
-        "la": p0.la, "sb": p0.sb, "input_bytes": len(data),
-        "tokens": stm.tokens, "batches": batches, "encode_s": menc_s,
-        "encode_MB_s": len(data) / menc_s / 1e6,
-        "walk_route_encode_MB_s": len(data) / enc_s / 1e6,
-        "in_turns_s": turns, "phases": stm.phases.as_dict(),
-        "h2d_bytes": stm.h2d_bytes, "d2h_bytes": stm.d2h_bytes,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "launches": m_launches, "stream_equals_native": True,
-        "stream_equals_walk_route": True, "roundtrip": True,
-    }})
+    # ---- the batch steps, once each: K5 and the scan step chained -------
+    st_launches, st_rec = {}, {}
+    for name, step in (("merged", fused_walk.encode_batch_sweepwalk),
+                       ("scan", fused.encode_batch_device)):
+        reset_counts()
+        got = step_stream(step, x, p0, B, G)
+        kernel = STEP_PATH_KERNEL[name]
+        counts = read_counts((kernel,), f"the {name} step")
+        if counts[kernel] != batches or any(
+                counts[k] for k in ("match_kernel", "walk_parse_pack_kernel",
+                                    "sweepwalk_kernel") if k != kernel):
+            raise AssertionError(f"{name} step launched {counts}")
+        if got != ref_stream:
+            raise AssertionError(f"{name} step stream differs from native")
+        st_launches[name] = counts
+        st_rec[name] = {"batches": batches, "launches": counts,
+                        "stream_equals_native": True}
+    emit({"batch_steps": {"la": p0.la, "sb": p0.sb,
+                          "input_bytes": len(data), **st_rec}})
 
-    # ---- the plain tensor modules on the card, first 8 MiB ---------------
+    # ---- the chunked decoder on the card, first 8 MiB --------------------
     head = data[: 8 << 20]
     head_ref = native.encode(head, p0)
-    t0 = time.perf_counter()
-    scan = fused.encode_bytes_fused(head, p0, parser="scan")
-    torch.cuda.synchronize()
-    scan_s = time.perf_counter() - t0
-    if scan != head_ref or scan != fused.encode_bytes_fused(head, p0):
-        raise AssertionError("scan parser stream differs")
     t0 = time.perf_counter()
     chunked = codec.decode_bytes(head_ref, backend="device-chunked")
     torch.cuda.synchronize()
@@ -2957,12 +2959,10 @@ def main() -> int:
     if chunked != head or chunked != lt.decompress(head_ref):
         raise AssertionError("device-chunked decode differs")
     emit({"plain_modules": {
-        "note": "plain tensor code, no kernel of their own",
-        "input_bytes": len(head), "scan_encode_s": scan_s,
-        "scan_encode_MB_s": len(head) / scan_s / 1e6,
-        "device_chunked_decode_s": chunked_s,
+        "note": "plain tensor code, no kernel of its own",
+        "input_bytes": len(head), "device_chunked_decode_s": chunked_s,
         "device_chunked_decode_MB_s": len(head) / chunked_s / 1e6,
-        "scan_equals_native": True, "device_chunked_equals_input": True,
+        "device_chunked_equals_input": True,
     }})
 
     # ---- the CLI path, once, file to file through cli.main --------------
@@ -3033,7 +3033,8 @@ def main() -> int:
     # ---- K1's wide-window route against the sweep, timed -------------
     drive_match_chain_path(a.seed)
 
-    paths = (launches, m_launches, cli_launches, *conf_launches.values(),
+    paths = (launches, *st_launches.values(), cli_launches,
+             *conf_launches.values(),
              probe_launches, sh_launches, ex_launches, mh_launches,
              edge_launches, xla_launches)
     kernels = []

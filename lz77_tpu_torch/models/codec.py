@@ -389,8 +389,8 @@ def encode_bytes(
 ) -> bytes:
     """Compress ``data`` into a complete reference-format stream.
 
-    ``pipeline``: "fused" (device-resident, any width with its default
-    walk parser; takes ``sub_block``, int or None) or "host" (device match
+    ``pipeline``: "fused" (device-resident, the walk step a batch, any
+    width; takes ``sub_block``, int or None) or "host" (device match
     + host parse, any width; takes ``retries`` (default 2),
     ``fault_injector`` and ``match_fn``, a replacement for its match phase
     such as ``parallel.sharded.sharded_match_fn``).  Both take every

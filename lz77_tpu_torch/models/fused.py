@@ -3,34 +3,27 @@
 Replaces the reference's serial token loop (lz77.c:89-136) AND its bit
 writer (lz77.c:246-251, bitio.c:203-236) with one device computation per
 batch; the host only uploads raw bytes and fetches the packed payload prefix
-and two scalars.  The walk packs tokens of any width at any bit phase; the
-merged and scan steps cut each token word to bytes, so they take only
-widths that are byte multiples (the default 12+4+8 = 24 bits is).
+and two scalars.
 
 A batch is G consecutive blocks, one contiguous span of the input.  The
-batch step has three forms, chosen by ``parser``:
+pipeline's batch step is :func:`encode_batch_walk`: the match sweep gives
+(L, O) for every position (``ops.match``; any matcher by name, K1 by
+default); ``build_lox`` fuses them with the bytes into one word per
+position; the walk kernel (``ops.parse_walk``) follows the greedy chain
+from the entry the previous batch left and writes packed token words, their
+count and the next entry; the pack kernel (``ops.parse_walk.pack_bits``)
+writes them ``width`` bits each from the bit phase the previous batch left,
+and the next phase, all on the device.  It takes every token width.
 
-* ``"walk"`` (the default, :func:`encode_batch_walk`): the match sweep gives
-  (L, O) for every position (``ops.match``; any matcher by name, K1 by
-  default); ``build_lox`` fuses them with
-  the bytes into one word per position; the walk kernel (``ops.parse_walk``)
-  follows the greedy chain from the entry the previous batch left and writes
-  packed token words, their count and the next entry; the pack kernel
-  (``ops.parse_walk.pack_bits``) writes them ``width`` bits each from the
-  bit phase the previous batch left, and the next phase, all on the
-  device.
-* ``"merged"`` (``ops.fused_walk.encode_batch_sweepwalk``): the same result
-  from one kernel that keeps the match tables on the chip; it runs its own
-  sweep, so any matcher but ``sweep`` raises.
-* ``"scan"`` (:func:`encode_batch_device`): the match sweep, then the parse
-  as plain tensor code — per-sub-block jump tables squared into entry->exit
-  maps, the maps composed by a prefix scan, token starts by a batched
-  pointer-doubling orbit, compaction and pack.  It holds no kernel of its
-  own; it also reports per-block token counts and, on request, the batch's
-  entry->exit map.
-
-Streams are byte-identical across the three, to the numpy executable spec
-and to the native host encoder.
+Two more steps keep the JAX package's batch contract and are called as
+steps, not through the pipeline: ``ops.fused_walk.encode_batch_sweepwalk``
+(K5: the same result from one kernel that keeps the match tables on the
+chip) and :func:`encode_batch_device` (the scan step: the parse in plain
+tensor code, which also reports per-block token counts and, on request, the
+batch's entry->exit map; the multi-process route runs it).  Both cut each
+token word to bytes, so they take only widths that are byte multiples (the
+default 12+4+8 = 24 bits is).  Streams are byte-identical across the
+three, to the numpy executable spec and to the native host encoder.
 
 The batch inputs keep the JAX package's contract — (G, B) blocks, each with
 its own halo and right extension — so the two packages are compared like
@@ -42,14 +35,12 @@ and the host fetches the exact payload prefix.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import torch
 
 from .. import bitio, spec
 from .. import device as device_lib
-from ..ops import fused_walk
 from ..ops import match as match_ops
 from ..ops import parse_walk
 from ..utils import faults as faults_lib
@@ -63,9 +54,8 @@ from ..utils import transfer as transfer_lib
 # near 130 MB.  Both stay arguments.
 DEFAULT_BLOCK_SIZE = 1 << 20
 DEFAULT_BATCH_BLOCKS = 8
-# Sub-block of the scan parser: its tables are (span / s, s + la) wide.
+# Sub-block of the scan step: its tables are (span / s, s + la) wide.
 DEFAULT_SCAN_SUB_BLOCK = 1 << 10
-PARSERS = ("walk", "merged", "scan")
 
 
 def _log2_ceil(n: int) -> int:
@@ -157,7 +147,7 @@ def encode_batch_device(
     matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ):
-    """One fused device step, scan-parser variant (plain tensor code);
+    """One fused device step, the scan variant (plain tensor code);
     ``matcher`` names the match tables' finder (K1 by default).
 
     Returns (payload, counts, total_tokens, exit_entry):
@@ -288,43 +278,16 @@ def encode_batch_device(
     return out
 
 
-def _resolve_fused_config(
-    params: spec.Params,
-    n: int,
-    block_size: int | None,
-    sub_block: int | None,
-    parser: str = "walk",
-    matcher: str = match_ops.DEFAULT_MATCHER,
-):
-    """Shared knob resolution: (block_size, sub_block, parser) for an
-    n-byte input.  ``sub_block`` is the walk's or the scan's; the merged
-    kernel has its own fixed tile and takes none, and its own sweep: with
-    any other matcher it raises (the JAX package quietly runs the walk
-    there; this one has no quiet route switch).  The walk takes every
-    token width; the merged and scan steps refuse one that is not a byte
-    multiple (the JAX package's fused pipeline refuses it on every
-    route)."""
-    if parser not in PARSERS:
-        raise ValueError(
-            f"unknown parser {parser!r}; available: {', '.join(PARSERS)}"
-        )
-    if parser == "walk" and fused_walk.MERGED_DEFAULT:
-        parser = "merged"
-    if parser != "walk" and params.width % 8 != 0:
-        raise ValueError("fused pipeline requires byte-aligned token width")
-    if parser == "merged" and match_ops.route_matcher(matcher) != "sweep":
-        raise ValueError(
-            "parser 'merged' runs its own sweep (matcher 'sweep'); "
-            f"matcher {matcher!r} runs with parser 'walk' or 'scan'"
-        )
+def _sizes(n: int, block_size: int | None, sub_block: int | None):
+    """(block_size, sub_block) for an n-byte input: the defaults where
+    None, each checked positive."""
     if block_size is None:
         block_size = min(DEFAULT_BLOCK_SIZE, max(n, 1))
     if sub_block is None:
-        sub_block = (DEFAULT_SCAN_SUB_BLOCK if parser == "scan"
-                     else parse_walk.DEFAULT_SUB_BLOCK)
+        sub_block = parse_walk.DEFAULT_SUB_BLOCK
     if block_size < 1 or sub_block < 1:
         raise ValueError("block_size and sub_block must be positive")
-    return block_size, sub_block, parser
+    return block_size, sub_block
 
 
 def _span_start(gn: int, H: int) -> int:
@@ -378,7 +341,6 @@ def iter_batches_fused(
     block_size: int | None = None,
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
     sub_block: int | None = None,
-    parser: str = "walk",
     matcher: str = match_ops.DEFAULT_MATCHER,
     start_batch: int = 0,
     entry: int = 0,
@@ -413,31 +375,20 @@ def iter_batches_fused(
     (``utils.transfer``).  On the CPU the same steps run with a numpy span
     and no stream or event.
 
-    ``parser`` names the batch step: ``"walk"`` (match sweep + walk kernel +
-    pack kernel, any token width), ``"merged"`` (the one merged kernel; it
-    never gives way to the walk) or ``"scan"`` (match sweep + the scan
-    parser in plain tensor code); the last two take byte-multiple widths.
-    ``matcher`` names the walk's and the scan's match tables' finder
-    (``ops.match.get_matcher``); ``"merged"`` takes only ``"sweep"``.
+    Each batch runs :func:`encode_batch_walk` (match sweep, walk kernel,
+    pack kernel; any token width); ``matcher`` names its match tables'
+    finder (``ops.match.get_matcher``) and ``sub_block`` its walk's
+    sub-block (``parse_walk.DEFAULT_SUB_BLOCK`` where None).
     """
     dev = device_lib.resolve(device)
     n = x.shape[0]
-    block_size, sub_block, parser = _resolve_fused_config(
-        params, n, block_size, sub_block, parser, matcher
-    )
-    if parser == "merged":
-        step = fused_walk.encode_batch_sweepwalk
-    else:
-        step = functools.partial(
-            encode_batch_walk if parser == "walk" else encode_batch_device,
-            sub_block=sub_block, matcher=matcher,
-        )
+    block_size, sub_block = _sizes(n, block_size, sub_block)
     width = params.width
     B, G = block_size, batch_blocks
     H, R = params.d_limit, params.len_limit
     # K1's wide-window route counts its walk on the device; the counts ride
     # in each batch's (total, exit) fetch
-    counted = (parser == "walk" and stats is not None
+    counted = (stats is not None
                and match_ops.route_matcher(matcher) == "sweep"
                and match_ops.takes_chain(H))
     nblocks = -(-n // B)
@@ -451,8 +402,7 @@ def iter_batches_fused(
           else contextlib.nullcontext()) as tr:
         prev_done = None  # the event of the batch submitted last
         # the bit phase the next batch starts at: on the device (an int
-        # before the first batch; the merged and scan steps start every
-        # batch at 0, their widths being byte multiples), and on the host
+        # before the first batch), and on the host
         phase_dev, phase_host = 0, 0
 
         # Under a profiler each step below is a span
@@ -476,11 +426,11 @@ def iter_batches_fused(
                         else torch.from_numpy(buf))
             with profiling.annotate("encode.launch", stats):
                 counters = match_ops.new_counters(dev) if counted else None
-                payload, _, total, exit_entry, *exit_phase = step(
+                payload, _, total, exit_entry, exit_phase = encode_batch_walk(
                     *rows_from_span(span, gn, B, H, R), vt, entry_dev,
-                    *((phase_dev,) if parser == "walk" else ()),
-                    la=params.la, sb=params.sb, device=dev,
-                    **({"counters": counters} if counted else {}),
+                    phase_dev, la=params.la, sb=params.sb,
+                    sub_block=sub_block, matcher=matcher, counters=counters,
+                    device=dev,
                 )
                 # the counters' int64 words as int32 halves
                 pair = torch.cat([total, exit_entry] + (
@@ -491,8 +441,7 @@ def iter_batches_fused(
                 stats.batches += 1
                 stats.batches_overlapped += hidden
             prev_done = done
-            if exit_phase:
-                phase_dev = exit_phase[0]
+            phase_dev = exit_phase
             return bi, payload, pair, done, exit_entry
 
         def fetch(handle, e_in: int):
@@ -572,29 +521,19 @@ def encode_bytes_fused(
     batch_blocks: int = DEFAULT_BATCH_BLOCKS,
     sub_block: int | None = None,
     stats=None,
-    parser: str = "walk",
     matcher: str = match_ops.DEFAULT_MATCHER,
     device: str | torch.device | None = None,
 ) -> bytes:
-    """Compress via the fused device pipeline.
-
-    ``parser``: "walk" (match sweep + walk kernel + pack kernel, the
-    default; any token width), "merged" (one kernel for match, parse and
-    pack) or "scan" (match sweep + the plain-tensor scan parser), the last
-    two at token widths that are byte multiples only; the three give one
-    stream.  ``matcher``:
-    any name of ``ops.match.get_matcher`` for the walk and the scan; the
-    merged kernel runs its own sweep and refuses every other.
-    """
+    """Compress via the fused device pipeline (:func:`iter_batches_fused`:
+    match sweep, walk kernel and pack kernel a batch, any token width);
+    ``matcher``: any name of ``ops.match.get_matcher``."""
     from . import codec as codec_model  # lazy: avoid import cycle
 
     params = params or spec.Params()
     dev = device_lib.resolve(device)
     x = np.frombuffer(data, dtype=np.uint8)
     n = x.shape[0]
-    block_size, sub_block, parser = _resolve_fused_config(
-        params, n, block_size, sub_block, parser, matcher
-    )
+    block_size, sub_block = _sizes(n, block_size, sub_block)
     st = stats if stats is not None else codec_model.EncodeStats()
     st.input_bytes = n
 
@@ -610,7 +549,7 @@ def encode_bytes_fused(
         out.write(bitio.header_bytes(params))
         for _, _, _, tok, payload in iter_batches_fused(
             x, params, block_size=block_size, batch_blocks=batch_blocks,
-            sub_block=sub_block, parser=parser, matcher=matcher, stats=st,
+            sub_block=sub_block, matcher=matcher, stats=st,
             device=dev,
         ):
             # from the fetch buffer to its place; a batch that starts

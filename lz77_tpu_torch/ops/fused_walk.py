@@ -55,9 +55,6 @@ from . import parse_walk
 # Positions a thread block of ``sweepwalk_kernel`` takes: one hop of the
 # hand-off chain each.  The kernel takes it as an argument (1..16384).
 TILE = 4096
-# The merged kernel is not the fused pipeline's default route: ``parser=
-# "merged"`` asks for it by name.
-MERGED_DEFAULT = False
 
 
 def _check(blocks, entry, valid_total, la):

@@ -22,9 +22,11 @@ from lz77_tpu.models import decoder as jax_decoder
 from lz77_tpu.models import spec_np as jax_spec_np
 from lz77_tpu_torch import bitio, cli, edges, native, spec
 from lz77_tpu_torch.models import codec, decoder, fused, spec_np
-from lz77_tpu_torch.ops import decode_walk
+from lz77_tpu_torch.ops import decode_walk, fused_walk
 from lz77_tpu_torch.parallel import mesh as mesh_lib
 from lz77_tpu_torch.parallel import sharded
+
+from test_torch_fused_walk import _step_stream
 
 torch.set_num_threads(1)
 
@@ -55,23 +57,25 @@ def test_input_runs_one_byte_across_a_block_boundary():
 
 @GRID
 def test_encode_routes_give_the_jax_stream(la, sb):
-    """fused walk at every width, merged / scan where the width is
-    byte-aligned (else the JAX package's ValueError), the host pipeline
-    with both matchers, a 2x2 CPU mesh and the native binding: the JAX
-    native stream, itself equal to the JAX executable spec's."""
+    """fused walk at every width, the merged (K5) and scan steps chained
+    where the width is byte-aligned (else the JAX package's ValueError),
+    the host pipeline with both matchers, a 2x2 CPU mesh and the native
+    binding: the JAX native stream, itself equal to the JAX executable
+    spec's."""
     want = jax_stream(la, sb)
     assert want == jax_spec_np.encode(DATA, jax_spec.Params(la, sb))
     p = spec.Params(la, sb)
     assert spec_np.encode(DATA, p) == want
     assert native.encode(DATA, p) == want
-    for parser in fused.PARSERS:
-        if parser == "walk" or bitio.byte_aligned(p):
-            assert fused.encode_bytes_fused(
-                DATA, p, block_size=B, parser=parser, device="cpu") == want
+    assert fused.encode_bytes_fused(DATA, p, block_size=B,
+                                    device="cpu") == want
+    for step in (fused_walk.encode_batch_sweepwalk,
+                 fused.encode_batch_device):
+        if bitio.byte_aligned(p):
+            assert _step_stream(step, DATA, p, B) == want
         else:
             with pytest.raises(ValueError, match="byte-aligned"):
-                fused.encode_bytes_fused(DATA, p, block_size=B, parser=parser,
-                                         device="cpu")
+                _step_stream(step, DATA, p, B)
     for matcher in ("sweep", "chunk"):
         assert codec.encode_bytes(DATA, p, pipeline="host", matcher=matcher,
                                   block_size=B, device="cpu") == want

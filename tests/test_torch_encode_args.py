@@ -3,9 +3,8 @@ run, as the JAX package does, where they used to drop it.
 
 The fused pipeline (``compress``'s default) takes every matcher name, as
 the JAX package's does; an unknown one raises ``ValueError`` with
-``route_matcher``'s text, which the JAX package's ``compress`` also raises,
-and the merged parser, which runs its own sweep, refuses every other
-matcher (the JAX package quietly runs the walk there).  An argument
+``route_matcher``'s text, which the JAX package's ``compress`` also raises.
+An argument
 that only the other pipeline takes raises ``TypeError``, as the JAX
 package's ``encode_bytes`` does for ``sub_block``.  On the CPU, so the
 kernels' plain versions.
@@ -30,14 +29,11 @@ DATA = b"abcabcabd" * 40 + b"\x00" * 300 + b"the cat sat on the mat " * 9
     ("brute", None),             # an XLA matcher of the JAX package
     ("chunk", None),
     ("pallas", None),            # alias of chunk
-    ("brute-merged", "parser 'merged' runs its own sweep"),
 ])
 def test_fused_refuses_other_matchers(matcher, text):
     """The name dates from when the fused pipeline ran the sweep alone: an
     unknown name is still refused, every other name runs and gives the JAX
-    package's stream, and the merged parser refuses all but its sweep."""
-    matcher, _, parser = matcher.partition("-")
-    kw = {"parser": parser} if parser else {}
+    package's stream."""
     if text is None:
         want = lz77_tpu.compress(DATA, backend="numpy")
         assert lt.compress(DATA, device="cpu", matcher=matcher) == want
@@ -45,15 +41,14 @@ def test_fused_refuses_other_matchers(matcher, text):
                                   device="cpu") == want
         return
     with pytest.raises(ValueError, match=text):
-        fused.encode_bytes_fused(DATA, matcher=matcher, device="cpu", **kw)
-    if not parser:
-        with pytest.raises(ValueError, match=text):
-            lt.compress(DATA, device="cpu", matcher=matcher)
-        with pytest.raises(ValueError, match=text):
-            codec.encode_bytes(DATA, pipeline="fused", matcher=matcher,
-                               device="cpu")
-        with pytest.raises(ValueError, match="unknown matcher"):
-            lz77_tpu.compress(DATA, backend="jax", matcher="bogus")
+        fused.encode_bytes_fused(DATA, matcher=matcher, device="cpu")
+    with pytest.raises(ValueError, match=text):
+        lt.compress(DATA, device="cpu", matcher=matcher)
+    with pytest.raises(ValueError, match=text):
+        codec.encode_bytes(DATA, pipeline="fused", matcher=matcher,
+                           device="cpu")
+    with pytest.raises(ValueError, match="unknown matcher"):
+        lz77_tpu.compress(DATA, backend="jax", matcher="bogus")
 
 
 @pytest.mark.parametrize("pipeline,kwargs", [

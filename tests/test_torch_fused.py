@@ -18,6 +18,7 @@ from lz77_tpu.models import fused as jax_fused
 from lz77_tpu.models import spec_np
 from lz77_tpu_torch.models import codec as torch_codec
 from lz77_tpu_torch.models import fused as torch_fused
+from lz77_tpu_torch.ops import fused_walk
 
 from conftest import CORPUS_SMALL, make_text
 
@@ -102,20 +103,21 @@ def test_fused_nondefault_aligned_params(la, sb, rng):
 
 def test_fused_rejects_unaligned_width():
     """At 25-bit tokens the walk encodes (the JAX package's fused pipeline
-    refuses); the merged and scan steps refuse, as the JAX package's do."""
+    refuses); the merged (K5) and scan steps refuse, as the JAX package's
+    do."""
     params = lz77_tpu_torch.Params(la=17, sb=4095)  # 12+5+8 = 25 bits
     data = b"abcabcabd" * 3
     assert torch_fused.encode_bytes_fused(data, params, device="cpu") \
         == native.encode(data, spec.Params(la=17, sb=4095))
-    for parser in ("merged", "scan"):
-        with pytest.raises(ValueError, match="byte-aligned"):
-            torch_fused.encode_bytes_fused(data, params, parser=parser,
-                                           device="cpu")
-    with pytest.raises(ValueError, match="byte-aligned"):
-        jax_fused.encode_bytes_fused(data, spec.Params(la=17, sb=4095))
     batch = (np.array([list(b"abcabcab")], np.uint8),
              np.zeros((1, 4095), np.uint8), np.zeros((1, 16), np.uint8),
              np.zeros(1, np.int32), np.full(1, 8, np.int32), 8, 0)
+    for step in (fused_walk.encode_batch_sweepwalk,
+                 torch_fused.encode_batch_device):
+        with pytest.raises(ValueError, match="byte-aligned"):
+            step(*batch, la=17, sb=4095, device="cpu")
+    with pytest.raises(ValueError, match="byte-aligned"):
+        jax_fused.encode_bytes_fused(data, spec.Params(la=17, sb=4095))
     payload, _, total, exit_e, phase = torch_fused.encode_batch_walk(
         *batch, 5, la=17, sb=4095, device="cpu")
     # three literals, then (3, 4) and "b": four 25-bit tokens from bit 5,
@@ -124,9 +126,6 @@ def test_fused_rejects_unaligned_width():
     stream = native.encode(b"abcabcab", spec.Params(la=17, sb=4095))
     bits = int.from_bytes(stream[4:], "little") << 5
     assert bytes(payload[:14].numpy()) == bits.to_bytes(14, "little")
-    with pytest.raises(ValueError, match="byte-aligned"):
-        torch_fused.encode_batch_device(*batch, la=17, sb=4095,
-                                        device="cpu")
 
 
 def test_fused_roundtrip_and_backends(rng):

@@ -1,13 +1,15 @@
-"""Port merged sweep+walk (lz77_tpu_torch.ops.fused_walk) and the parser
-routing of the fused encode against the JAX package.
+"""Port merged sweep+walk (lz77_tpu_torch.ops.fused_walk) and the fused
+encode's batch steps against the JAX package.
 
 The same numpy batch inputs, made from a seed, go through
 ``lz77_tpu.models.fused.encode_batch_device`` (the formulation the JAX
 package's own tests hold its merged kernel equal to) and the port's
 ``encode_batch_sweepwalk`` on the CPU (so through the kernel's plain PyTorch
-version), chained over batches by the exit entry.  Widths that are no byte
-multiple go through the token-level wrapper against the numpy executable
-spec.  The JAX merged kernel itself runs once, interpreted, in a fresh
+version), chained over batches by the exit entry; each step (K5 and the
+scan step) chained into a whole stream (``_step_stream``) gives the JAX
+package's, ``native.encode``'s and the walk pipeline's.  Widths that are
+no byte multiple go through the token-level wrapper against the numpy
+executable spec.  The JAX merged kernel itself runs once, interpreted, in a fresh
 process.  Tolerance 0: bytes, counts and entries are integers.
 """
 
@@ -25,11 +27,12 @@ from lz77_tpu import spec
 from lz77_tpu.models import codec as jax_codec
 from lz77_tpu.models import fused as jax_fused
 from lz77_tpu.models import spec_np
-from lz77_tpu_torch import convert
+from lz77_tpu_torch import bitio, convert, native
+from lz77_tpu_torch.models import codec as torch_codec
 from lz77_tpu_torch.models import fused as torch_fused
 from lz77_tpu_torch.ops import fused_walk, parse_walk
 
-from conftest import make_text
+from conftest import CORPUS_SMALL, make_text
 from test_fused_walk import _RUNNER
 
 torch.set_num_threads(1)
@@ -69,6 +72,37 @@ def _chain(data, params, B, G):
     return entries
 
 
+def _step_stream(step, data, params, B=None,
+                 G=torch_fused.DEFAULT_BATCH_BLOCKS, entries=None, **kw):
+    """A batch step (``encode_batch_sweepwalk`` or ``encode_batch_device``)
+    over the port's ``codec._batch_inputs`` batches on the CPU, the exit
+    entry carried as the device tensor, each batch's ``total * width / 8``
+    payload bytes after the header; the pipeline's geometry (``B`` the
+    input where None, the last batch its real blocks only).  Returns the
+    stream; with ``entries``, appends each batch's entry to it."""
+    x = np.frombuffer(data, np.uint8)
+    n = x.shape[0]
+    B = B or min(torch_fused.DEFAULT_BLOCK_SIZE, max(n, 1))
+    nblocks = -(-n // B)
+    out = bytearray(bitio.header_bytes(params))
+    e = torch.zeros(1, dtype=torch.int32)
+    for g0 in range(0, nblocks, G):
+        gn = min(G, nblocks - g0)
+        arrs = torch_codec._batch_inputs(x, n, g0, gn, gn, B, params.d_limit,
+                                         params.len_limit)
+        if entries is not None:
+            entries.append(int(e))
+        payload, _, total, e = step(
+            *arrs, min(gn * B, n - g0 * B), e, la=params.la, sb=params.sb,
+            device="cpu", **kw)
+        out += payload[: int(total) * params.width // 8].numpy().tobytes()
+    return bytes(out)
+
+
+STEPS = {"merged": fused_walk.encode_batch_sweepwalk,
+         "scan": torch_fused.encode_batch_device}
+
+
 @pytest.mark.parametrize("la,sb,n", [(5, 31, 9000), (15, 4095, 5000),
                                      (255, 65535, 2600)])
 def test_sweepwalk_matches_scan_parser_chained(la, sb, n, rng):
@@ -105,18 +139,24 @@ def test_sweep_walk_tokens_match_the_spec(la, sb, rng):
     assert fused_walk.sweep_walk.launches == 0
 
 
-@pytest.mark.parametrize("parser", ["walk", "merged", "scan"])
+@pytest.mark.parametrize("step", ["walk", "merged", "scan"])
 @pytest.mark.parametrize("name", ["empty", "one", "mixed"])
-def test_three_parsers_give_the_jax_stream(parser, name, rng):
+def test_each_step_gives_the_jax_stream(step, name, rng):
+    """The walk through the pipeline, K5 and the scan step chained by
+    ``_step_stream``, at the same geometry."""
     data = {
         "empty": b"", "one": b"A",
         "mixed": make_text(np.random.default_rng(7), 3000) + b"ab" * 900
         + bytes(np.random.default_rng(8).integers(0, 256, 700, dtype=np.uint8)),
     }[name]
-    out = torch_fused.encode_bytes_fused(
-        data, lz77_tpu_torch.Params(), block_size=1500, batch_blocks=2,
-        sub_block=200, parser=parser, device="cpu",
-    )
+    if step == "walk":
+        out = torch_fused.encode_bytes_fused(
+            data, lz77_tpu_torch.Params(), block_size=1500, batch_blocks=2,
+            sub_block=200, device="cpu",
+        )
+    else:
+        out = _step_stream(STEPS[step], data, lz77_tpu_torch.Params(), 1500,
+                           2, **({"sub_block": 200} if step == "scan" else {}))
     assert out == jax_codec.encode_bytes(
         data, spec.Params(), block_size=2048, batch_blocks=2
     )
@@ -124,17 +164,42 @@ def test_three_parsers_give_the_jax_stream(parser, name, rng):
     assert lz77_tpu_torch.decompress(out, device="cpu") == data
 
 
+# the long run of test_torch_fused.py::test_fused_entry_carry_across_batches
+ENTRY_CARRY = (b"x" * 9000 + make_text(np.random.default_rng(0xC57D), 3000)
+               + b"y" * 9000)
+
+
+@pytest.mark.parametrize("case", ["text", "zeros", "entry_carry"])
+@pytest.mark.parametrize("step", sorted(STEPS))
+def test_steps_chain_to_the_native_stream(step, case, rng):
+    """Each step chained batch to batch gives ``native.encode``'s stream and
+    the walk pipeline's: CORPUS_SMALL's text and zeros at the defaults, and
+    a long run across batches of two 2 KiB blocks (nonzero entries)."""
+    p = lz77_tpu_torch.Params()
+    if case == "entry_carry":
+        data, B, G = ENTRY_CARRY, 2048, 2
+    else:
+        data, B, G = (CORPUS_SMALL[case](rng), None,
+                      torch_fused.DEFAULT_BATCH_BLOCKS)
+    entries = []
+    out = _step_stream(STEPS[step], data, p, B, G, entries)
+    assert out == native.encode(data, p)
+    assert out == torch_fused.encode_bytes_fused(
+        data, p, block_size=B, batch_blocks=G, device="cpu")
+    assert any(entries) == (case == "entry_carry")
+
+
 def test_unknown_parser_and_auto_raise():
-    for parser in ("auto", "pallas", ""):
-        with pytest.raises(ValueError, match="walk, merged, scan"):
-            torch_fused.encode_bytes_fused(b"abc", parser=parser, device="cpu")
-        with pytest.raises(ValueError, match="walk, merged, scan"):
-            list(torch_fused.iter_batches_fused(
+    """The pipeline runs the walk step alone: ``parser`` is an unknown
+    keyword there, as any other, whatever its value."""
+    for parser in ("walk", "merged", "scan", "auto"):
+        with pytest.raises(TypeError, match="parser"):
+            torch_fused.encode_bytes_fused(b"x", parser=parser, device="cpu")
+        with pytest.raises(TypeError, match="parser"):
+            torch_fused.iter_batches_fused(
                 np.zeros(3, np.uint8), lz77_tpu_torch.Params(), parser=parser,
                 device="cpu",
-            ))
-    assert fused_walk.MERGED_DEFAULT is False
-    assert torch_fused.PARSERS == ("walk", "merged", "scan")
+            )
 
 
 def test_sweepwalk_short_spans_and_bad_arguments():
@@ -182,10 +247,8 @@ def test_merged_route_matches_the_pallas_kernel_interpreted(tmp_path, rng):
         env=dict(os.environ, PYTHONPATH=repo),
     )
     assert r.returncode == 0, r.stderr[-1500:]
-    out = torch_fused.encode_bytes_fused(
-        data, lz77_tpu_torch.Params(5, 31), block_size=8192, batch_blocks=2,
-        parser="merged", device="cpu",
-    )
+    out = _step_stream(fused_walk.encode_batch_sweepwalk, data,
+                       lz77_tpu_torch.Params(5, 31), 8192, 2)
     assert out == op.read_bytes()
 
 

@@ -17,7 +17,7 @@ import lz77_tpu_torch as lt
 from codec_bench import reference
 from lz77_tpu_torch import edges, native, spec
 from lz77_tpu_torch.models import codec, fused, spec_np
-from lz77_tpu_torch.ops import parse_walk
+from lz77_tpu_torch.ops import fused_walk, parse_walk
 from lz77_tpu_torch.utils import transfer
 
 torch.set_num_threads(1)
@@ -101,13 +101,20 @@ def test_batches_join_at_every_bit_phase(la, sb):
     assert st.batches == len(phases)
 
 
-@pytest.mark.parametrize("parser", ["merged", "scan"])
+@pytest.mark.parametrize("step", ["merged", "scan"])
 @pytest.mark.parametrize("la,sb", [(255, 32767), (18, 4095)])
-def test_merged_and_scan_still_refuse_unaligned_widths(la, sb, parser):
+def test_merged_and_scan_still_refuse_unaligned_widths(la, sb, step):
+    """K5 and the scan step cut token words to bytes: at 31 and 25 bits
+    they refuse a batch, with the JAX package's text."""
+    p = spec.Params(la, sb)
+    x = np.frombuffer(DATA, np.uint8)
+    n = x.shape[0]
+    batch = codec._batch_inputs(x, n, 0, 1, 1, n, p.d_limit, p.len_limit)
+    fn = {"merged": fused_walk.encode_batch_sweepwalk,
+          "scan": fused.encode_batch_device}[step]
     with pytest.raises(ValueError,
                        match="fused pipeline requires byte-aligned token"):
-        fused.encode_bytes_fused(DATA, spec.Params(la, sb), parser=parser,
-                                 device="cpu")
+        fn(*batch, n, 0, la=la, sb=sb, device="cpu")
 
 
 def test_bytes_builder_ors_a_seam_into_the_last_byte():

@@ -110,8 +110,6 @@ def test_default_device_raises_without_a_card():
             np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
             np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
             np.full(1, 8, np.int32), 8, 0, la=15, sb=4095),
-        lambda: fused.encode_bytes_fused(b"abc", parser="merged"),
-        lambda: fused.encode_bytes_fused(b"abc", parser="scan"),
         lambda: fused.encode_batch_device(
             np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
             np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
@@ -162,8 +160,7 @@ def test_default_device_raises_without_a_card():
     ids=["find_matches", "encode_batch_walk", "encode_bytes_fused",
          "decode_tokens_walk", "find_matches_chunk", "encode_bytes_host",
          "iter_block_bits", "decode_tokens_walk_packed",
-         "encode_batch_sweepwalk", "encode_bytes_fused_merged",
-         "encode_bytes_fused_scan", "encode_batch_device", "coissue_call_v",
+         "encode_batch_sweepwalk", "encode_batch_device", "coissue_call_v",
          "coissue_probe", "run_conformance", "run_big_streamed",
          "make_mesh", "encode_bytes_sharded", "encode_bytes_sharded_cuda",
          "sharded_match_fn", "encode_file_sharded", "encode_bytes_multihost",
@@ -241,7 +238,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
                                  matcher="chunk")
     assert s2 == s
     assert match_chunk.match_chunk.launches == 0
-    s3 = fused.encode_bytes_fused(data, parser="merged", device="cpu")
+    from test_torch_fused_walk import _step_stream
+    s3 = _step_stream(fused_walk.encode_batch_sweepwalk, data,
+                      lz77_tpu_torch.Params())
     assert s3 == s
     assert fused_walk.sweep_walk.launches == 0
 

@@ -36,10 +36,10 @@ DECODE_ORDER = ["decode.unpack", "decode.pack", "decode.upload",
                 "decode.launch", "decode.verdict", "decode.fetch"]
 
 
-def _encode(data, stats=None, parser="walk"):
+def _encode(data, stats=None):
     return fused.encode_bytes_fused(
-        data, block_size=BLOCK, batch_blocks=BATCH, parser=parser,
-        stats=stats, device="cpu")
+        data, block_size=BLOCK, batch_blocks=BATCH, stats=stats,
+        device="cpu")
 
 
 def _profiled(fn):
@@ -94,15 +94,14 @@ def test_off_keeps_nothing_and_calls_no_record_function(rng, monkeypatch):
     assert st.phases.io > 0 and st.phases.match > 0
 
 
-@pytest.mark.parametrize("parser", fused.PARSERS)
-def test_encode_spans_follow_the_two_deep_loop(rng, parser):
+def test_encode_spans_follow_the_two_deep_loop(rng):
     data = make_text(rng, NBYTES)
-    want = _encode(data, parser=parser)
+    want = _encode(data)
     stats = []
 
     def run():
         stats.append(codec.EncodeStats())
-        return _encode(data, stats[-1], parser)
+        return _encode(data, stats[-1])
 
     out, events = _profiled(run)
     assert out == want  # byte-identical with tracing on and off

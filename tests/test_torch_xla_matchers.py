@@ -28,7 +28,7 @@ from lz77_tpu.ops import bitplane as jax_bitplane
 from lz77_tpu.ops import match as jax_match
 from lz77_tpu_torch import native, spec
 from lz77_tpu_torch.models import codec, fused
-from lz77_tpu_torch.ops import bitplane, match
+from lz77_tpu_torch.ops import bitplane, fused_walk, match
 from lz77_tpu_torch.parallel import distributed, sharded
 from lz77_tpu_torch.parallel import mesh as mesh_lib
 from lz77_tpu_torch.utils import profiling
@@ -230,23 +230,25 @@ def test_host_pipeline_streams_equal_the_jax_package(name, tmp_path):
 
 
 def test_fused_walk_and_scan_take_a_matcher_and_merged_refuses_them():
+    """The walk pipeline and the scan step (chained by the fused-walk
+    tests' helper) take ``sorted``; K5 runs its own sweep and takes no
+    matcher."""
+    from test_torch_fused_walk import _step_stream
     data = make_data(3, 1800)
     p = spec.Params()
     want = native.encode(data, p)
-    for parser in ("walk", "scan"):
-        assert fused.encode_bytes_fused(data, p, block_size=600,
-                                        parser=parser, matcher="sorted",
-                                        device="cpu") == want
+    assert fused.encode_bytes_fused(data, p, block_size=600, matcher="sorted",
+                                    device="cpu") == want
+    assert _step_stream(fused.encode_batch_device, data, p, 600,
+                        matcher="sorted") == want
     assert codec.encode_bytes(data, p, pipeline="fused", matcher="sorted",
                               block_size=600, device="cpu") == want
-    for name in XLA + ("chunk", "pallas"):
-        with pytest.raises(ValueError, match="parser 'merged' runs its own"):
-            fused.encode_bytes_fused(data, p, parser="merged", matcher=name,
-                                     device="cpu")
-    # the merged kernel's own names still run
-    for name in ("sweep", "pallas_bitplane"):
-        assert fused.encode_bytes_fused(data, p, parser="merged",
-                                        matcher=name, device="cpu") == want
+    with pytest.raises(TypeError, match="matcher"):
+        fused_walk.encode_batch_sweepwalk(
+            np.zeros((1, 8), np.uint8), np.zeros((1, 4095), np.uint8),
+            np.zeros((1, 14), np.uint8), np.zeros(1, np.int32),
+            np.full(1, 8, np.int32), 8, 0, la=15, sb=4095, matcher="sorted",
+            device="cpu")
 
 
 @pytest.mark.parametrize("name", ["bitplane", "brute"])
